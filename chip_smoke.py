@@ -17,8 +17,10 @@ Phases; any failure raises and the script exits non-zero:
              wait for the device, then frames timed by the slope
              t(2n) - t(n) over n, each launching the kernel once; finite
              state, contacts present, bench.py's quality bar met; the
-             kernel (and its plain version, on fewer passes) timed at the
-             frame's shapes.
+             device time of the step's three stages (CUDA events); the
+             kernel against its plain version at the frame's shapes on
+             fewer passes, gates off and on (equal, as in phase 3), and
+             both timed.
 
 Prints a JSON line of the main path's physics and rate, a JSON line of
 the kernels, the card's ``nvidia-smi`` name and power limit, and last
@@ -70,14 +72,18 @@ def phase_build() -> None:
         print(f"#   nvcc: {line}")
 
 
-def _compare(args) -> float:
-    """Kernel vs plain version on the same CUDA tensors; returns the max
-    abs difference, raising unless every output is equal."""
+def _compare(args) -> tuple:
+    """Kernel vs plain version on the same CUDA tensors; returns (max abs
+    difference, plain version's ms), raising unless every output is
+    equal."""
     import torch
     from phyx_tpu_torch.kernels import contact_solver_streamed as K
     got = K.solve_contacts_streamed(**args)
+    _sync()
+    t0 = time.perf_counter()
     ref = K.solve_contacts_streamed_plain(**args)
     _sync()
+    plain_ms = (time.perf_counter() - t0) * 1e3
     err = 0.0
     for name, a, b in zip(("body", "acc", "residual"), got, ref):
         if not torch.isfinite(a).all().item():
@@ -87,7 +93,7 @@ def _compare(args) -> float:
         if not torch.equal(a, b):
             raise AssertionError(f"kernel {name} differs from the plain "
                                  f"version: max abs diff {d}")
-    return err
+    return err, plain_ms
 
 
 def phase_compare() -> float:
@@ -99,9 +105,9 @@ def phase_compare() -> float:
     contacts = stats_dict(st.stats)["num_contacts"]
     if contacts < 200:
         raise AssertionError(f"small pile has only {contacts} contacts")
-    err = _compare(solve_inputs(st, cfg))
+    err = _compare(solve_inputs(st, cfg))[0]
     gated = cfg.replace(velocity_rel_tol=1e-2, position_rel_tol=1e-2)
-    err = max(err, _compare(solve_inputs(st, gated)))
+    err = max(err, _compare(solve_inputs(st, gated))[0])
     print(f"# compare: kernel == plain on a 200-box pile frame "
           f"({contacts} contacts, 2048 rows), gates off and on; "
           f"max abs diff {err}", flush=True)
@@ -159,6 +165,39 @@ def _kernel_ms(args, reps: int) -> float:
     end.record()
     _sync()
     return start.elapsed_time(end) / reps
+
+
+def _stage_ms(st, cfg, frames: int):
+    """Device ms of the step's three stages, averaged over ``frames``
+    frames, on CUDA events.  Each frame is queued behind a ~100 ms sleep
+    kernel, so the host has queued the stages before the device reaches
+    them and the events time device work alone (``device_only`` says
+    whether the host's enqueue did finish inside the sleep).  Returns
+    (state after the frames, dict of ms)."""
+    import torch
+    from phyx_tpu_torch.step import contact_stage, finish_stage, solve_stage
+    names = ("contact_stage", "solve_stage", "finish_stage")
+    out = dict.fromkeys(names + ("sleep", "host_enqueue"), 0.0)
+    for _ in range(frames):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        _sync()
+        ev[0].record()
+        torch.cuda._sleep(200_000_000)
+        t0 = time.perf_counter()
+        ev[1].record()
+        bodies, pairs, contacts = contact_stage(st, cfg)
+        ev[2].record()
+        bodies, acc_n, acc_t, res = solve_stage(bodies, contacts, cfg)
+        ev[3].record()
+        st = finish_stage(st, cfg, bodies, pairs, contacts, acc_n, acc_t, res)
+        ev[4].record()
+        out["host_enqueue"] += (time.perf_counter() - t0) * 1e3 / frames
+        _sync()
+        out["sleep"] += ev[0].elapsed_time(ev[1]) / frames
+        for k, name in enumerate(names):
+            out[name] += ev[k + 1].elapsed_time(ev[k + 2]) / frames
+    out["device_only"] = out["host_enqueue"] < out["sleep"]
+    return st, out
 
 
 def phase_main(card: str) -> dict:
@@ -226,18 +265,28 @@ def phase_main(card: str) -> dict:
                              f"{stats['pair_overflow']}, penetration ratio "
                              f"{pen_ratio}")
 
-    # the solve kernel at this frame's shapes: all passes, then the warm
-    # pass + one velocity pass beside the plain version (which runs one
-    # device launch per scalar operation)
+    # device time of the step's stages on three more settled frames
+    st, stages = _stage_ms(st, cfg, frames=3)
+    stage_sum = sum(stages[k] for k in ("contact_stage", "solve_stage",
+                                        "finish_stage"))
+
+    # the solve kernel against its plain version at this frame's shapes
+    # (the plain version runs one device launch per scalar operation, so
+    # it walks the warm pass + one velocity + one displacement pass, not
+    # all 17): ungated, and gated with thresholds that skip every second
+    # pass (so 2 + 2 passes run as 1 + 1)
     args = solve_inputs(st, cfg)
+    short = dict(args, vel_iters=1, pos_iters=1)
+    err, plain_ms = _compare(short)
+    skip = torch.full((2,), 1e30, dtype=torch.float32, device="cuda")
+    err = max(err, _compare(dict(args, vel_iters=2, pos_iters=2,
+                                 tols=skip))[0])
+    live = int(args["num_contacts"])
+    print(f"# compare: kernel == plain at the 10k frame ({live} contacts, "
+          f"{args['b1'].numel()} rows), warm + 1 + 1 passes, gates off and "
+          f"on; max abs diff {err}", flush=True)
     ms_full = _kernel_ms(args, reps=3)
-    short = dict(args, vel_iters=1, pos_iters=0)
     ms_short = _kernel_ms(short, reps=3)
-    _sync()
-    tp = time.perf_counter()
-    K.solve_contacts_streamed_plain(**short)
-    _sync()
-    plain_ms = (time.perf_counter() - tp) * 1e3
 
     out = dict(metric=f"steps/s @ {BOXES}-box pile (port, H100 path)",
                steps_per_s=1.0 / per_frame, frame_ms=per_frame * 1e3,
@@ -253,10 +302,13 @@ def phase_main(card: str) -> dict:
                penetration_ratio=pen_ratio,
                residual=stats["residual"],
                solve_ms_full=ms_full,
-               solve_share_of_frame=ms_full / (per_frame * 1e3), card=card)
+               solve_share_of_frame=ms_full / (per_frame * 1e3),
+               stage_device_ms=stages, stage_device_sum_ms=stage_sum,
+               card=card)
     print(json.dumps(out), flush=True)
     return dict(launches=launches, ms=ms_short, plain_ms=plain_ms,
-                ms_full_solve=ms_full, num_contacts=stats["num_contacts"])
+                max_abs_err=err, ms_full_solve=ms_full,
+                num_contacts=live)
 
 
 def main() -> int:
@@ -270,9 +322,11 @@ def main() -> int:
         name="contact_solver_streamed", route="cuda",
         source="phyx_tpu_torch/csrc/contact_solver_streamed.cu",
         replaces="phyx_tpu/kernels/contact_solver_streamed.py:58",
-        launches=main_out["launches"], max_abs_err=err,
+        launches=main_out["launches"],
+        max_abs_err=max(err, main_out["max_abs_err"]),
         ms=main_out["ms"], plain_ms=main_out["plain_ms"],
-        timed="warm pass + 1 velocity pass at the 10k frame's shapes",
+        timed="warm + 1 velocity + 1 displacement pass at the 10k frame's "
+              "shapes",
         ms_full_solve=main_out["ms_full_solve"],
         contacts_last_frame=main_out["num_contacts"])]
     if not all(math.isfinite(k["ms"]) for k in kernels):

@@ -26,7 +26,7 @@ max |impulse delta| of the last executed velocity pass.
 Gates: from the second velocity pass on, a pass is skipped once the
 previous executed pass's residual is below ``tols[0]``; displacement
 passes likewise with their own residual and ``tols[1]``.  A threshold of
-0.0 never fires.
+0.0 never fires; ``tols=None`` is ungated.
 """
 
 from __future__ import annotations
@@ -115,14 +115,12 @@ def _no_joint_rows(num_joints):
                                   "ported yet: ROADMAP M9")
 
 
-def _tolerances(tols, vel_gated, pos_gated, device):
-    """(2,) f32 thresholds with an ungated kind's entry at 0.0 (never
-    fires).  Built on the device: no host-to-device copy per frame."""
-    zero = torch.zeros((), dtype=torch.float32, device=device)
-    if tols is None or not (vel_gated or pos_gated):
-        return torch.stack([zero, zero])
-    return torch.stack([tols[0] if vel_gated else zero,
-                        tols[1] if pos_gated else zero])
+def _tolerances(tols, device):
+    """(2,) f32 thresholds; ``None`` (ungated) is zeros, which never fire.
+    Built on the device: no host-to-device copy per frame."""
+    if tols is None:
+        return torch.zeros((2,), dtype=torch.float32, device=device)
+    return tols
 
 
 def solve_contacts_streamed(
@@ -135,8 +133,6 @@ def solve_contacts_streamed(
     vel_iters: int,
     pos_iters: int,
     num_joints=None,
-    vel_gated: bool = False,
-    pos_gated: bool = False,
     tols: Optional[torch.Tensor] = None,   # (2,) f32 [vel, pos] thresholds
 ):
     """Returns (body_flat', acc (R*4,), residual (1,)) — see the module
@@ -154,12 +150,11 @@ def solve_contacts_streamed(
     _check("num_contacts", num_contacts, torch.int32, (), device)
     if tols is not None:
         _check("tols", tols, torch.float32, (2,), device)
-    tols = _tolerances(tols, vel_gated, pos_gated, device)
+    tols = _tolerances(tols, device)
     if device.type == "cpu":
         return solve_contacts_streamed_plain(
             body_flat, b1, b2, con_flat, warm_flat, num_contacts,
-            vel_iters, pos_iters, vel_gated=vel_gated, pos_gated=pos_gated,
-            tols=tols)
+            vel_iters, pos_iters, tols=tols)
     if device.type != "cuda":
         raise NotImplementedError(f"no solve kernel for {device.type}")
     if n == 0 or vel_iters < 0 or pos_iters < 0:
@@ -188,8 +183,7 @@ solve_contacts_streamed.launches = 0
 
 def solve_contacts_streamed_plain(
     body_flat, b1, b2, con_flat, warm_flat, num_contacts,
-    vel_iters: int, pos_iters: int, num_joints=None,
-    vel_gated: bool = False, pos_gated: bool = False, tols=None,
+    vel_iters: int, pos_iters: int, num_joints=None, tols=None,
 ):
     """The plain version: the kernel's visits, in its order, as scalar
     float32 torch operations on the tensors' own device.  It reads ``num``
@@ -199,8 +193,7 @@ def solve_contacts_streamed_plain(
     device = body_flat.device
     n = body_flat.numel() // 8
     r = b1.numel()
-    tols = _tolerances(tols, vel_gated, pos_gated, device)
-    vtol, ptol = tols.unbind()
+    vtol, ptol = _tolerances(tols, device).unbind()
     num = min(max(int(num_contacts), 0), r)
     ids1 = [min(max(i, 0), n - 1) for i in b1[:num].tolist()]
     ids2 = [min(max(j, 0), n - 1) for j in b2[:num].tolist()]

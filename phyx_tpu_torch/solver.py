@@ -23,23 +23,13 @@ from phyx_tpu_torch.narrowphase import Contacts
 from phyx_tpu_torch.types import Bodies
 
 
-def prepare(bodies: Bodies, contacts: Contacts, cfg: SimConfig,
-            pair_props=None) -> Contacts:
+def prepare(contacts: Contacts, cfg: SimConfig, pair_props) -> Contacts:
     """Batched PrepareJoints.  ``pair_props`` — (props1, props2) from
     ``narrowphase_with_props``, each (C/2, 7) at pair granularity:
-    [vel.x, vel.y, angvel, inv_mass, inv_inertia, friction, restitution].
-    Without it the same rows are gathered here."""
+    [vel.x, vel.y, angvel, inv_mass, inv_inertia, friction, restitution]."""
     n = contacts.normal
     t = m2.perp(n)
     r1, r2 = contacts.r1, contacts.r2
-    if pair_props is None:
-        props = torch.cat([
-            bodies.vel, bodies.angvel[:, None], bodies.inv_mass[:, None],
-            bodies.inv_inertia[:, None], bodies.friction[:, None],
-            bodies.restitution[:, None]], dim=1)          # (N, 7)
-        # both points of pair p (slots 2p, 2p+1) share their bodies
-        pair_props = (props[contacts.b1[::2].to(torch.int64)],
-                      props[contacts.b2[::2].to(torch.int64)])
     # expand pair rows to the 2 contact slots (a broadcast, not a gather)
     p1, p2 = (p[:, None].expand(-1, 2, -1).reshape(-1, p.shape[-1])
               for p in pair_props)
@@ -128,10 +118,10 @@ def pack_streamed(bodies: Bodies, contacts: Contacts,
     ], dim=1).reshape(-1)
     warm_flat = torch.stack([contacts.warm_n, contacts.warm_t],
                             dim=1).reshape(-1)
-    vel_gated = cfg.velocity_tol > 0.0 or cfg.velocity_rel_tol > 0.0
-    pos_gated = cfg.position_rel_tol > 0.0
+    # an ungated kind's threshold is 0.0, which never fires
     tols = None
-    if vel_gated or pos_gated:
+    if (cfg.velocity_tol > 0.0 or cfg.velocity_rel_tol > 0.0
+            or cfg.position_rel_tol > 0.0):
         tols = torch.stack([velocity_threshold(cfg, contacts),
                             position_threshold(cfg, contacts)])
     return dict(body_flat=body_flat, b1=contacts.b1.contiguous(),
@@ -139,8 +129,7 @@ def pack_streamed(bodies: Bodies, contacts: Contacts,
                 warm_flat=warm_flat,
                 num_contacts=num_contacts.to(torch.int32),
                 vel_iters=cfg.velocity_iterations,
-                pos_iters=cfg.position_iterations,
-                vel_gated=vel_gated, pos_gated=pos_gated, tols=tols)
+                pos_iters=cfg.position_iterations, tols=tols)
 
 
 def solve_pallas(bodies: Bodies, contacts: Contacts,

@@ -33,10 +33,12 @@ from phyx_tpu_torch.config import SimConfig
 from phyx_tpu_torch.narrowphase import Contacts, narrowphase_with_props
 from phyx_tpu_torch.types import Bodies, SolverStats, State
 
-# the fields the solve reads, permuted together by the compaction
+# the fields the solve reads, permuted together by the compaction.  `valid`
+# keeps the original order, as in the reference (step.py:246-255): the
+# relative gates' impulse scale masks the permuted warm impulses with it
+# (ROADMAP queue 3)
 _SOLVE_FIELDS = ("b1", "b2", "normal", "r1", "r2", "mass_n", "mass_t",
-                 "friction", "dst_v", "dst_dv", "c_nt", "warm_n", "warm_t",
-                 "valid")
+                 "friction", "dst_v", "dst_dv", "c_nt", "warm_n", "warm_t")
 
 
 def integrate_velocities(bodies: Bodies, cfg: SimConfig) -> Bodies:
@@ -66,7 +68,8 @@ def compact_contacts(contacts: Contacts):
     """Live contacts first, in their original order (a stable sort), so the
     kernel visits only live rows in the reference's sweep order.  Returns
     (compacted contacts, order, live count); only the solve's fields are
-    permuted — penetration, fid and color keep the original order."""
+    permuted — valid, penetration, fid and color keep the original
+    order."""
     order = torch.argsort((~contacts.valid).to(torch.int32), stable=True)
     compacted = contacts.replace(**{
         f: getattr(contacts, f)[order] for f in _SOLVE_FIELDS})
@@ -100,16 +103,16 @@ def contact_stage(state: State, cfg: SimConfig):
     pairs = broadphase(bodies, cfg)
     contacts, pair_props = narrowphase_with_props(bodies, pairs, cfg)
     contacts = warm_start_from_cache(contacts, pairs, state.cache)
-    contacts = solver.prepare(bodies, contacts, cfg, pair_props=pair_props)
+    contacts = solver.prepare(contacts, cfg, pair_props)
     return bodies, pairs, contacts
 
 
-def step(state: State, cfg: SimConfig) -> State:
-    """One simulation frame: State -> State, no host round-trip."""
-    bodies, pairs, contacts = contact_stage(state, cfg)
-    bodies, accum_n, accum_t, residual = solve_stage(bodies, contacts, cfg)
+def finish_stage(state: State, cfg: SimConfig, bodies: Bodies, pairs,
+                 contacts: Contacts, accum_n: torch.Tensor,
+                 accum_t: torch.Tensor, residual: torch.Tensor) -> State:
+    """Everything after the solve: integrate positions, rebuild the cache,
+    emit stats."""
     bodies = integrate_positions(bodies, cfg)
-
     cache = build_cache(contacts, pairs, accum_n, accum_t)
     stats = SolverStats(
         num_pairs=pairs.num,
@@ -127,6 +130,14 @@ def step(state: State, cfg: SimConfig) -> State:
     )
     return State(bodies=bodies, joints=state.joints, cache=cache,
                  stats=stats)
+
+
+def step(state: State, cfg: SimConfig) -> State:
+    """One simulation frame: State -> State, no host round-trip."""
+    bodies, pairs, contacts = contact_stage(state, cfg)
+    bodies, accum_n, accum_t, residual = solve_stage(bodies, contacts, cfg)
+    return finish_stage(state, cfg, bodies, pairs, contacts, accum_n,
+                        accum_t, residual)
 
 
 def rollout(state: State, cfg: SimConfig, num_steps: int) -> State:

@@ -100,6 +100,8 @@ def test_import_leaves_jax_out():
 
 def test_no_module_imports_jax():
     for path in PORT.rglob("*.py"):
+        if "_build" in path.relative_to(PORT).parts:   # build output
+            continue
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
             if isinstance(node, ast.Import):

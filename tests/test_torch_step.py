@@ -34,12 +34,11 @@ def leaves(state):
     return out
 
 
-def test_step_matches_jax_step():
+def hold_steps_to_jax(jcfg, cfg, seed):
     """Ten frames of a 60-box pile, the port's input re-synced from the JAX
     state every frame: integers (pairs, cache keys, feature ids, counts,
     overflow counters) exact, floats within 1e-4."""
-    jcfg, cfg = JaxConfig(**PILE), SimConfig(**PILE)
-    jst = jscenes.pile(jcfg, 60, seed=1).build()
+    jst = jscenes.pile(jcfg, 60, seed=seed).build()
     contacts = []
     for frame in range(10):
         ours = step(state_from_numpy(
@@ -57,6 +56,23 @@ def test_step_matches_jax_step():
                                            err_msg=f"frame {frame} {k}")
         contacts.append(int(ref["stats.num_contacts"]))
     assert max(contacts) > 100
+
+
+def test_step_matches_jax_step():
+    hold_steps_to_jax(JaxConfig(**PILE), SimConfig(**PILE), seed=1)
+
+
+@pytest.mark.parametrize("tols,seed", [
+    # rl_preset's velocity gate plus the displacement gate it documents
+    (dict(position_rel_tol=1e-2), 1),
+    # a frame (6) where the reference's gate scale, which masks the
+    # compacted warm impulses with the original-order `valid`, flips a gate
+    # decision against the frame's true max (ROADMAP queue 3)
+    (dict(velocity_rel_tol=0.2, position_rel_tol=0.2), 0),
+], ids=["rl_preset", "scale_flip"])
+def test_gated_step_matches_jax_step(tols, seed):
+    hold_steps_to_jax(JaxConfig.rl_preset(**PILE, **tols),
+                      SimConfig.rl_preset(**PILE, **tols), seed)
 
 
 def test_matches_oracle_two_boxes():
