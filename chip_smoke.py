@@ -1,30 +1,48 @@
 """Smoke run of the PyTorch/CUDA port (``phyx_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase
+    python3 chip_smoke.py --quick    # device, build and the small checks
 
 Phases; any failure raises and the script exits non-zero:
 
 1. device  — require CUDA; print the card's name and power limit.
-2. build   — build the solve kernel from ``phyx_tpu_torch/csrc``.
-3. compare — the kernel against its plain torch version on the packed
-             solve input of a small pile frame on the card, with the
-             residual gates off and on: body rows, accumulators and
-             residual must be equal (exact float32 equality); then the
-             whole step on the card against the step on the CPU.
-4. main    — the 10k-box pile at the bench's settings (cap 16,384 bodies,
+2. build   — build both solve kernels from ``phyx_tpu_torch/csrc``, one
+             ``nvcc`` each, started together: K1, the streamed kernel
+             (state in device memory), and K2, the fused kernel (state in
+             shared memory).
+3. compare — each kernel against the plain torch version on the packed
+             solve input of small frames on the card, gates off and on:
+             a 200-box pile (contacts only), a loaded bridge (revolute
+             rows and contacts) and a net (distance rows).  Body rows,
+             accumulators and residual must be equal (exact float32
+             equality), and K1 must equal K2.  Then the whole step on the
+             card against the step on the CPU: a 60-box pile, a 20-link
+             chain and a loaded bridge.
+4. pile10k — the 10k-box pile at the bench's settings (cap 16,384 bodies,
              32,256 pairs, sap_grid window 192 / 8 hits, 10+6 passes)
              through ``rollout``: a 300-frame settle in which no step may
              wait for the device, then frames timed by the slope
-             t(2n) - t(n) over n, each launching the kernel once; finite
-             state, contacts present, bench.py's quality bar met; the
-             device time of the step's three stages (CUDA events); the
-             kernel against its plain version at the frame's shapes on
-             fewer passes, gates off and on (equal, as in phase 3), and
-             both timed.
+             t(2n) - t(n) over n, each launching K1 once and K2 never;
+             finite state, contacts present, bench.py's quality bar met;
+             the device time of the step's stages (CUDA events); K1
+             against its plain version at the frame's shapes on fewer
+             passes, gates off and on, and both timed.
+5. chain   — the 1000-link revolute chain at bench row C's settings (cap
+             1024 bodies, 2048 pairs, 1024 joints, the same broadphase and
+             passes): 300-frame settle without host waits, slope timing,
+             each frame launching K2 once and K1 never; bench.py's joint
+             bar (overflow 0, residual <= 1e-2), finite state; stage times;
+             K2 against the plain version at the frame's shapes on fewer
+             passes, gates off and on; K1 == K2 on the full frame, and both
+             timed there.
+6. pile1k  — the 1k pile (cap 1024, 3584 pairs): 400-frame settle, slope
+             timing, K2 once a frame, the 0.6 penetration bar; stage times;
+             K2 against the plain version at the frame's shapes, gates off
+             and on.
 
-Prints a JSON line of the main path's physics and rate, a JSON line of
-the kernels, the card's ``nvidia-smi`` name and power limit, and last
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+Prints a JSON line per main-path phase (physics, rate, stage times), a
+JSON line of the kernels, the card's ``nvidia-smi`` name and power limit,
+and last ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -35,13 +53,36 @@ import subprocess
 import sys
 import time
 
-BOXES = 10_000
-SETTLE = 300
+# H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s and float32
+# operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# float operations of one visit of each kind (csrc/solve_rows.cuh):
+# contact warm, velocity, displacement; joint warm, velocity, displacement
+OPS = dict(cw=24, cv=59, cp=40, jw=19, jv=42, jp=42)
 
 
 def _sync():
     import torch
     torch.cuda.synchronize()
+
+
+def _kernels():
+    from phyx_tpu_torch.kernels import contact_solver as K2
+    from phyx_tpu_torch.kernels import contact_solver_streamed as K1
+    return K1, K2
+
+
+def _reset_counts():
+    K1, K2 = _kernels()
+    K1.solve_contacts_streamed.launches = 0
+    K2.solve_contacts_fused.launches = 0
+
+
+def _counts() -> dict:
+    K1, K2 = _kernels()
+    return dict(K1=K1.solve_contacts_streamed.launches,
+                K2=K2.solve_contacts_fused.launches)
 
 
 def phase_device() -> str:
@@ -63,55 +104,100 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    from phyx_tpu_torch.kernels import contact_solver_streamed as K
+    from phyx_tpu_torch.kernels import nvcc
+    K1, K2 = _kernels()
     t0 = time.perf_counter()
-    _, report = K.build()
-    print(f"# build: {time.perf_counter() - t0:.2f} s "
-          f"({K.SOURCE.name})", flush=True)
-    for line in report.splitlines():
-        print(f"#   nvcc: {line}")
+    reports = nvcc.compile_all([K1.SOURCE, K2.SOURCE])
+    K1.build()
+    K2.build()
+    print(f"# build: {time.perf_counter() - t0:.2f} s for "
+          f"{K1.SOURCE.name} and {K2.SOURCE.name}, in parallel", flush=True)
+    for name, report in reports.items():
+        for line in report.splitlines():
+            print(f"#   nvcc {name}: {line}")
 
 
-def _compare(args) -> tuple:
-    """Kernel vs plain version on the same CUDA tensors; returns (max abs
-    difference, plain version's ms), raising unless every output is
-    equal."""
+def _equal(name, got, ref) -> float:
+    """Max abs difference of two (body, acc, residual) triples, raising
+    unless every output is finite and equal."""
     import torch
-    from phyx_tpu_torch.kernels import contact_solver_streamed as K
-    got = K.solve_contacts_streamed(**args)
-    _sync()
-    t0 = time.perf_counter()
-    ref = K.solve_contacts_streamed_plain(**args)
-    _sync()
-    plain_ms = (time.perf_counter() - t0) * 1e3
     err = 0.0
-    for name, a, b in zip(("body", "acc", "residual"), got, ref):
+    for part, a, b in zip(("body", "acc", "residual"), got, ref):
         if not torch.isfinite(a).all().item():
-            raise AssertionError(f"kernel {name} has non-finite values")
+            raise AssertionError(f"{name} {part} has non-finite values")
         d = (a - b).abs().max().item()
         err = max(err, d)
         if not torch.equal(a, b):
-            raise AssertionError(f"kernel {name} differs from the plain "
-                                 f"version: max abs diff {d}")
-    return err, plain_ms
-
-
-def phase_compare() -> float:
-    from phyx_tpu_torch import SimConfig, scenes
-    from phyx_tpu_torch.step import rollout, solve_inputs, stats_dict
-    cfg = SimConfig(max_bodies=256, max_pairs=1024, broadphase="sap_grid",
-                    sap_window=64, solver_backend="pallas")
-    st = rollout(scenes.pile(cfg, 200, seed=0).build("cuda"), cfg, 40)
-    contacts = stats_dict(st.stats)["num_contacts"]
-    if contacts < 200:
-        raise AssertionError(f"small pile has only {contacts} contacts")
-    err = _compare(solve_inputs(st, cfg))[0]
-    gated = cfg.replace(velocity_rel_tol=1e-2, position_rel_tol=1e-2)
-    err = max(err, _compare(solve_inputs(st, gated))[0])
-    print(f"# compare: kernel == plain on a 200-box pile frame "
-          f"({contacts} contacts, 2048 rows), gates off and on; "
-          f"max abs diff {err}", flush=True)
+            raise AssertionError(f"{name} {part} differs: max abs diff {d}")
     return err
+
+
+def _compare(wrapper, args) -> tuple:
+    """Kernel vs plain version on the same CUDA tensors; returns (max abs
+    difference, plain version's ms), raising unless every output is
+    equal."""
+    K1, _ = _kernels()
+    got = wrapper(**args)
+    _sync()
+    t0 = time.perf_counter()
+    ref = K1.solve_contacts_streamed_plain(**args)
+    _sync()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    return _equal(f"{wrapper.__name__} vs plain", got, ref), plain_ms
+
+
+def _k1_equals_k2(args) -> float:
+    K1, K2 = _kernels()
+    return _equal("K1 vs K2", K1.solve_contacts_streamed(**args),
+                  K2.solve_contacts_fused(**args))
+
+
+def _small_frame(kind):
+    """A small frame on the card: (state, cfg, description)."""
+    from phyx_tpu_torch import SimConfig, scenes
+    from phyx_tpu_torch.step import rollout
+    if kind == "pile":
+        cfg = SimConfig(max_bodies=256, max_pairs=1024, broadphase="sap_grid",
+                        sap_window=64, solver_backend="pallas")
+        return (rollout(scenes.pile(cfg, 200, seed=0).build(), cfg, 40), cfg,
+                "200-box pile")
+    cfg = SimConfig(max_bodies=32, max_pairs=128, max_joints=32,
+                    broadphase="sap_grid", sap_window=16,
+                    solver_backend="pallas")
+    if kind == "bridge":
+        sb, frames = scenes.bridge(cfg, 8, load_boxes=3), 50
+    else:
+        sb, frames = scenes.net(cfg, 6), 20
+    return rollout(sb.build(), cfg, frames), cfg, f"{kind} frame"
+
+
+def phase_compare() -> dict:
+    """K1 and K2 against the plain version, and K1 against K2, on small
+    frames, gates off and on.  Returns the max abs differences."""
+    from phyx_tpu_torch.step import solve_inputs, stats_dict
+    K1, K2 = _kernels()
+    errs = dict(K1=0.0, K2=0.0)
+    for kind in ("pile", "bridge", "net"):
+        st, cfg, what = _small_frame(kind)
+        stats = stats_dict(st.stats)
+        if kind == "pile" and stats["num_contacts"] < 200:
+            raise AssertionError(f"small pile has only "
+                                 f"{stats['num_contacts']} contacts")
+        if kind == "bridge" and stats["num_contacts"] < 2:
+            raise AssertionError("no contacts on the loaded bridge")
+        gated = cfg.replace(velocity_rel_tol=1e-2, position_rel_tol=1e-2)
+        for c in (cfg, gated):
+            args = solve_inputs(st, c)
+            for name, wrapper in (("K1", K1.solve_contacts_streamed),
+                                  ("K2", K2.solve_contacts_fused)):
+                errs[name] = max(errs[name], _compare(wrapper, args)[0])
+            _k1_equals_k2(args)
+        rows = args["b1"].numel()
+        numj = 0 if args["num_joints"] is None else int(args["num_joints"])
+        print(f"# compare: K1 == plain, K2 == plain, K1 == K2 on a {what} "
+              f"({stats['num_contacts']} contacts, {numj} joints, {rows} "
+              f"slots), gates off and on; max abs diff {errs}", flush=True)
+    return errs
 
 
 def phase_step_parity() -> float:
@@ -123,48 +209,81 @@ def phase_step_parity() -> float:
     import numpy as np
     from phyx_tpu_torch import SimConfig, scenes
     from phyx_tpu_torch.convert import state_from_numpy, state_to_numpy
-    from phyx_tpu_torch.step import step
-    cfg = SimConfig(max_bodies=64, max_pairs=256, broadphase="sap_grid",
-                    sap_window=32, solver_backend="pallas")
-    st = scenes.pile(cfg, 60, seed=1).build("cpu")
+    from phyx_tpu_torch.step import rollout, step
+    pile = SimConfig(max_bodies=64, max_pairs=256, broadphase="sap_grid",
+                     sap_window=32, solver_backend="pallas")
+    jointed = SimConfig(max_bodies=32, max_pairs=128, max_joints=32,
+                        broadphase="sap_grid", sap_window=16,
+                        solver_backend="pallas")
+    cases = (
+        ("60-box pile", pile, scenes.pile(pile, 60, seed=1).build("cpu")),
+        ("20-link chain", jointed,
+         scenes.chain(jointed, 20).build("cpu")),
+        ("loaded bridge", jointed, rollout(scenes.bridge(
+            jointed, 8, load_boxes=3).build("cpu"), jointed, 50)),
+    )
     worst = 0.0
-    for frame in range(10):
-        card = state_to_numpy(step(state_from_numpy(state_to_numpy(st),
-                                                    "cuda"), cfg))
-        st = step(st, cfg)
-        host = state_to_numpy(st)
-        for rec in ("bodies", "cache", "stats"):
-            for f in dataclasses.fields(getattr(host, rec)):
-                a = getattr(getattr(host, rec), f.name)
-                b = getattr(getattr(card, rec), f.name)
-                if a.dtype.kind in "biu":
-                    if not np.array_equal(a, b):
-                        raise AssertionError(
-                            f"frame {frame}: {rec}.{f.name} differs "
-                            "between the card and the CPU")
-                elif a.size:
-                    d = float(np.abs(a.astype(np.float64) - b).max())
-                    worst = max(worst, d)
-                    if not d <= 1e-4:
-                        raise AssertionError(
-                            f"frame {frame}: {rec}.{f.name} off by {d}")
-    print(f"# step parity: 60-box pile, 10 frames, card vs CPU: integers "
-          f"equal, max float diff {worst}", flush=True)
+    for what, cfg, st in cases:
+        for frame in range(10):
+            card = state_to_numpy(step(state_from_numpy(
+                state_to_numpy(st), "cuda"), cfg))
+            st = step(st, cfg)
+            host = state_to_numpy(st)
+            for rec in ("bodies", "joints", "cache", "stats"):
+                for f in dataclasses.fields(getattr(host, rec)):
+                    a = getattr(getattr(host, rec), f.name)
+                    b = getattr(getattr(card, rec), f.name)
+                    if a.dtype.kind in "biu":
+                        if not np.array_equal(a, b):
+                            raise AssertionError(
+                                f"{what} frame {frame}: {rec}.{f.name} "
+                                "differs between the card and the CPU")
+                    elif a.size:
+                        d = float(np.abs(a.astype(np.float64) - b).max())
+                        worst = max(worst, d)
+                        if not d <= 1e-4:
+                            raise AssertionError(
+                                f"{what} frame {frame}: {rec}.{f.name} "
+                                f"off by {d}")
+        print(f"# step parity: {what}, 10 frames, card vs CPU: integers "
+              f"equal, max float diff so far {worst}", flush=True)
     return worst
 
 
-def _kernel_ms(args, reps: int) -> float:
+def _kernel_ms(wrapper, args, reps: int) -> float:
     import torch
-    from phyx_tpu_torch.kernels import contact_solver_streamed as K
-    K.solve_contacts_streamed(**args)          # warm-up
+    wrapper(**args)          # warm-up
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        K.solve_contacts_streamed(**args)
+        wrapper(**args)
     end.record()
     _sync()
     return start.elapsed_time(end) / reps
+
+
+def _bound(args) -> dict:
+    """The least time the card could take for the solve on ``args``
+    (ungated passes): each input byte read once and each output byte
+    written once over HBM's rate, against the visits' float32 operations
+    over the card's peak; the larger bounds it."""
+    n = args["body_flat"].numel() // 8
+    r = args["b1"].numel()
+    num = int(args["num_contacts"])
+    numj = 0 if args["num_joints"] is None else int(args["num_joints"])
+    v, p = args["vel_iters"], args["pos_iters"]
+    # body in and out; each live row's 12 f32, 2 warm f32 and 2 ids read
+    # once; the accumulators (all slots) and the residual written once
+    nbytes = 2 * n * 32 + (num + numj) * (48 + 8 + 8) + r * 16 + 4
+    ops = (num * (OPS["cw"] + v * OPS["cv"] + p * OPS["cp"])
+           + numj * (OPS["jw"] + v * OPS["jv"] + p * OPS["jp"]))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, ops=ops,
+                visits=(1 + v + p) * (num + numj))
 
 
 def _stage_ms(st, cfg, frames: int):
@@ -185,11 +304,13 @@ def _stage_ms(st, cfg, frames: int):
         torch.cuda._sleep(200_000_000)
         t0 = time.perf_counter()
         ev[1].record()
-        bodies, pairs, contacts = contact_stage(st, cfg)
+        bodies, pairs, contacts, jrows, jwarm = contact_stage(st, cfg)
         ev[2].record()
-        bodies, acc_n, acc_t, res = solve_stage(bodies, contacts, cfg)
+        bodies, acc_n, acc_t, res, joints = solve_stage(
+            bodies, contacts, st.joints, jrows, jwarm, cfg)
         ev[3].record()
-        st = finish_stage(st, cfg, bodies, pairs, contacts, acc_n, acc_t, res)
+        st = finish_stage(st, cfg, bodies, joints, pairs, contacts, acc_n,
+                          acc_t, res)
         ev[4].record()
         out["host_enqueue"] += (time.perf_counter() - t0) * 1e3 / frames
         _sync()
@@ -200,31 +321,39 @@ def _stage_ms(st, cfg, frames: int):
     return st, out
 
 
-def phase_main(card: str) -> dict:
-    import torch
-    from phyx_tpu_torch import SimConfig, scenes
-    from phyx_tpu_torch.kernels import contact_solver_streamed as K
-    from phyx_tpu_torch.step import rollout, solve_inputs, stats_dict
-
+def _bench_cfg(scene: str, boxes: int):
+    """bench.py's build() configuration for a scene (bench.py:160-198)."""
+    from phyx_tpu_torch import SimConfig
     cap = 1
-    while cap < BOXES + 8:
+    while cap < boxes + 8:
         cap *= 2
-    cfg = SimConfig(max_bodies=cap,
-                    max_pairs=max(1024, (int(BOXES * 3.2) + 511)
-                                  // 512 * 512),
-                    broadphase="sap_grid", sap_window=192, sap_hits=8,
-                    num_colors=24, solver_backend="pallas")
-    st = scenes.pile(cfg, BOXES, seed=0).build("cuda")
+    joint_scene = scene in ("chain", "bridge", "net")
+    pairs_per_box = 2 if joint_scene else 3.2
+    return SimConfig(max_bodies=cap,
+                     max_pairs=max(1024, (int(boxes * pairs_per_box) + 511)
+                                   // 512 * 512),
+                     max_joints=cap if joint_scene else 0,
+                     broadphase="sap_grid", sap_window=192, sap_hits=8,
+                     num_colors=24, solver_backend="pallas")
 
-    # settle as bench.py does (300 frames: the pile lands and its contact
-    # count levels off, so the slope below times a near-stationary state),
-    # then size n from the measured frame time (about 20 s for 3n frames)
+
+def _drive(scene: str, boxes: int, settle: int, kernel: str, card: str):
+    """Builds the bench scene on the card, settles it with every
+    synchronising call an error, then times frames by the slope
+    t(2n) - t(n) with the launch counts zeroed just before and read just
+    after.  Returns (state, cfg, dict of the run's numbers)."""
+    import torch
+    from phyx_tpu_torch import scenes
+    from phyx_tpu_torch.step import rollout, stats_dict
+    cfg = _bench_cfg(scene, boxes)
+    kw = {"seed": 0} if scene == "pile" else {}
+    st = getattr(scenes, scene)(cfg, boxes, **kw).build()
     _sync()
     t0 = time.perf_counter()
     # a step must not wait for the device: any synchronizing call raises
     torch.cuda.set_sync_debug_mode("error")
     try:
-        st = rollout(st, cfg, SETTLE)
+        st = rollout(st, cfg, settle)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     _sync()
@@ -233,9 +362,10 @@ def phase_main(card: str) -> dict:
     st = rollout(st, cfg, 2)
     _sync()
     frame_s = (time.perf_counter() - t0) / 2
-    n = max(4, min(30, int(20.0 / max(frame_s, 1e-3) / 3)))
+    # about 20 s for the 3n frames, 4 <= n <= 100
+    n = max(4, min(100, int(20.0 / max(frame_s, 1e-3) / 3)))
 
-    K.solve_contacts_streamed.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     st = rollout(st, cfg, n)
     _sync()
@@ -243,94 +373,179 @@ def phase_main(card: str) -> dict:
     st = rollout(st, cfg, 2 * n)
     _sync()
     t2 = time.perf_counter()
-    launches = K.solve_contacts_streamed.launches
-    if launches != 3 * n:
-        raise AssertionError(f"kernel launched {launches} times in "
-                             f"{3 * n} frames")
+    launches = _counts()
+    other = "K1" if kernel == "K2" else "K2"
+    if launches[kernel] != 3 * n or launches[other] != 0:
+        raise AssertionError(f"{scene}: launches {launches} in {3 * n} "
+                             f"frames, expected {kernel} once a frame")
     per_frame = ((t2 - t1) - (t1 - t0)) / n
     if not per_frame > 0.0:
         raise AssertionError(f"slope timing not positive: t(n)={t1 - t0}, "
                              f"t(2n)={t2 - t1}")
-
     stats = stats_dict(st.stats)
-    if not torch.isfinite(st.bodies.pos).all().item():
-        raise AssertionError("non-finite body positions")
-    if stats["num_contacts"] <= 0:
+    if not (torch.isfinite(st.bodies.pos).all().item()
+            and torch.isfinite(st.bodies.vel).all().item()):
+        raise AssertionError(f"{scene}: non-finite body state")
+    out = dict(scene=scene, boxes=boxes, steps_per_s=1.0 / per_frame,
+               frame_ms=per_frame * 1e3, frames_timed=3 * n,
+               frames_total=settle + 2 + 3 * n, settle_s=settle_s,
+               t_n_s=t1 - t0, t_2n_s=t2 - t1, launches=launches,
+               max_bodies=cfg.max_bodies, max_pairs=cfg.max_pairs,
+               max_joints=cfg.max_joints, card=card, **stats)
+    return st, cfg, out
+
+
+def _kernel_at_frame(st, cfg, wrapper, name) -> dict:
+    """The kernel against the plain version at the frame's shapes on warm
+    + 1 + 1 passes (the plain version runs one device launch per scalar
+    operation): ungated, and gated with thresholds that skip every second
+    pass (2 + 2 passes run as 1 + 1).  Then the kernel timed on those
+    passes and on all of them, with its bound for each."""
+    import torch
+    from phyx_tpu_torch.step import solve_inputs
+    args = solve_inputs(st, cfg)
+    short = dict(args, vel_iters=1, pos_iters=1)
+    err, plain_ms = _compare(wrapper, short)
+    skip = torch.full((2,), 1e30, dtype=torch.float32, device="cuda")
+    err = max(err, _compare(wrapper, dict(args, vel_iters=2, pos_iters=2,
+                                          tols=skip))[0])
+    live = int(args["num_contacts"])
+    numj = 0 if args["num_joints"] is None else int(args["num_joints"])
+    print(f"# compare: {name} == plain at the {cfg.max_bodies}-cap frame "
+          f"({live} contacts, {numj} joints, {args['b1'].numel()} slots), "
+          f"warm + 1 + 1 passes, gates off and on; max abs diff {err}",
+          flush=True)
+    ms_short = _kernel_ms(wrapper, short, reps=5)
+    ms_full = _kernel_ms(wrapper, args, reps=5)
+    full = _bound(args)
+    return dict(args=args, max_abs_err=err, plain_ms=plain_ms, ms=ms_short,
+                **_bound(short), ms_full_solve=ms_full,
+                bound_ms_full_solve=full["bound_ms"],
+                ns_per_visit=ms_full * 1e6 / full["visits"],
+                visits_full_solve=full["visits"], contacts=live,
+                joints=numj)
+
+
+def phase_pile10k(card: str) -> dict:
+    """The settled 10k pile through K1, the path of the first slice."""
+    K1, _ = _kernels()
+    st, cfg, out = _drive("pile", 10_000, 300, "K1", card)
+    if out["num_contacts"] <= 0:
         raise AssertionError("no contacts in the 10k pile")
     # bench.py's quality bar for piles: no overflow, penetration <= 0.6
     # of the box half (0.5)
-    pen_ratio = stats["max_penetration"] / 0.5
-    if stats["pair_overflow"] != 0 or not pen_ratio <= 0.6:
+    pen_ratio = out["max_penetration"] / 0.5
+    if out["pair_overflow"] != 0 or not pen_ratio <= 0.6:
         raise AssertionError(f"quality bar missed: overflow "
-                             f"{stats['pair_overflow']}, penetration ratio "
+                             f"{out['pair_overflow']}, penetration ratio "
                              f"{pen_ratio}")
-
-    # device time of the step's stages on three more settled frames
     st, stages = _stage_ms(st, cfg, frames=3)
-    stage_sum = sum(stages[k] for k in ("contact_stage", "solve_stage",
-                                        "finish_stage"))
-
-    # the solve kernel against its plain version at this frame's shapes
-    # (the plain version runs one device launch per scalar operation, so
-    # it walks the warm pass + one velocity + one displacement pass, not
-    # all 17): ungated, and gated with thresholds that skip every second
-    # pass (so 2 + 2 passes run as 1 + 1)
-    args = solve_inputs(st, cfg)
-    short = dict(args, vel_iters=1, pos_iters=1)
-    err, plain_ms = _compare(short)
-    skip = torch.full((2,), 1e30, dtype=torch.float32, device="cuda")
-    err = max(err, _compare(dict(args, vel_iters=2, pos_iters=2,
-                                 tols=skip))[0])
-    live = int(args["num_contacts"])
-    print(f"# compare: kernel == plain at the 10k frame ({live} contacts, "
-          f"{args['b1'].numel()} rows), warm + 1 + 1 passes, gates off and "
-          f"on; max abs diff {err}", flush=True)
-    ms_full = _kernel_ms(args, reps=3)
-    ms_short = _kernel_ms(short, reps=3)
-
-    out = dict(metric=f"steps/s @ {BOXES}-box pile (port, H100 path)",
-               steps_per_s=1.0 / per_frame, frame_ms=per_frame * 1e3,
-               frames_timed=3 * n, frames_total=SETTLE + 2 + 3 * n,
-               settle_s=settle_s,
-               t_n_s=t1 - t0, t_2n_s=t2 - t1,
-               num_contacts=stats["num_contacts"],
-               num_pairs=stats["num_pairs"],
-               pair_overflow=stats["pair_overflow"],
-               **{k: stats[k] for k in ("ovf_window", "ovf_slots",
-                                        "ovf_drop", "ovf_band", "ovf_slab")},
-               max_penetration=stats["max_penetration"],
-               penetration_ratio=pen_ratio,
-               residual=stats["residual"],
-               solve_ms_full=ms_full,
-               solve_share_of_frame=ms_full / (per_frame * 1e3),
-               stage_device_ms=stages, stage_device_sum_ms=stage_sum,
-               card=card)
+    k = _kernel_at_frame(st, cfg, K1.solve_contacts_streamed, "K1")
+    out.update(metric="steps/s @ 10000-box pile (port, H100 path)",
+               penetration_ratio=pen_ratio, stage_device_ms=stages,
+               solve_ms_full=k["ms_full_solve"],
+               solve_share_of_frame=k["ms_full_solve"] / out["frame_ms"])
     print(json.dumps(out), flush=True)
-    return dict(launches=launches, ms=ms_short, plain_ms=plain_ms,
-                max_abs_err=err, ms_full_solve=ms_full,
-                num_contacts=live)
+    return dict(k, launches=out["launches"]["K1"])
+
+
+def phase_chain(card: str) -> dict:
+    """Bench row C: the 1000-link chain, through K2; K1 on the same input
+    must equal it."""
+    K1, K2 = _kernels()
+    st, cfg, out = _drive("chain", 1000, 300, "K2", card)
+    # bench.py's joint bar: no overflow, joint residual <= 1e-2
+    if out["pair_overflow"] != 0 or not out["residual"] <= 1e-2:
+        raise AssertionError(f"chain bar missed: overflow "
+                             f"{out['pair_overflow']}, residual "
+                             f"{out['residual']}")
+    st, stages = _stage_ms(st, cfg, frames=3)
+    k = _kernel_at_frame(st, cfg, K2.solve_contacts_fused, "K2")
+    args = k["args"]
+    k1_err = _k1_equals_k2(args)
+    k1_ms = _kernel_ms(K1.solve_contacts_streamed, args, reps=5)
+    print(f"# compare: K1 == K2 on the chain frame, all passes; max abs "
+          f"diff {k1_err}", flush=True)
+    out.update(metric="steps/s @ 1000-link chain (port, H100 path)",
+               stage_device_ms=stages, solve_ms_full=k["ms_full_solve"],
+               k1_ms_full_solve=k1_ms,
+               k2_ns_per_visit=k["ns_per_visit"],
+               k1_ns_per_visit=k1_ms * 1e6 / k["visits_full_solve"],
+               solve_share_of_frame=k["ms_full_solve"] / out["frame_ms"])
+    print(json.dumps(out), flush=True)
+    return dict(k, launches=out["launches"]["K2"], k1_ms_full_solve=k1_ms)
+
+
+def phase_pile1k(card: str) -> dict:
+    """Bench row B': the 1k pile, settled 400 frames, through K2."""
+    _, K2 = _kernels()
+    st, cfg, out = _drive("pile", 1000, 400, "K2", card)
+    pen_ratio = out["max_penetration"] / 0.5
+    if (out["num_contacts"] <= 0 or out["pair_overflow"] != 0
+            or not pen_ratio <= 0.6):
+        raise AssertionError(f"1k pile bar missed: contacts "
+                             f"{out['num_contacts']}, overflow "
+                             f"{out['pair_overflow']}, penetration ratio "
+                             f"{pen_ratio}")
+    st, stages = _stage_ms(st, cfg, frames=3)
+    k = _kernel_at_frame(st, cfg, K2.solve_contacts_fused, "K2")
+    out.update(metric="steps/s @ 1000-box pile (port, H100 path)",
+               penetration_ratio=pen_ratio, stage_device_ms=stages,
+               solve_ms_full=k["ms_full_solve"],
+               k2_ns_per_visit=k["ns_per_visit"],
+               solve_share_of_frame=k["ms_full_solve"] / out["frame_ms"])
+    print(json.dumps(out), flush=True)
+    return dict(k, launches=out["launches"]["K2"])
+
+
+def _row(name, source, replaces, k, timed, **extra) -> dict:
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by")
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                **{key: k[key] for key in keys}, library_ms=None,
+                timed=timed, ms_full_solve=k["ms_full_solve"],
+                bound_ms_full_solve=k["bound_ms_full_solve"],
+                ns_per_visit=k["ns_per_visit"], contacts=k["contacts"],
+                joints=k["joints"], **extra)
 
 
 def main() -> int:
     import torch
+    quick = sys.argv[1:] == ["--quick"]
+    if sys.argv[1:] and not quick:
+        raise SystemExit("usage: python3 chip_smoke.py [--quick]")
     card = phase_device()
     phase_build()
-    err = phase_compare()
+    small = phase_compare()
     phase_step_parity()
-    main_out = phase_main(card)
-    kernels = [dict(
-        name="contact_solver_streamed", route="cuda",
-        source="phyx_tpu_torch/csrc/contact_solver_streamed.cu",
-        replaces="phyx_tpu/kernels/contact_solver_streamed.py:58",
-        launches=main_out["launches"],
-        max_abs_err=max(err, main_out["max_abs_err"]),
-        ms=main_out["ms"], plain_ms=main_out["plain_ms"],
-        timed="warm + 1 velocity + 1 displacement pass at the 10k frame's "
-              "shapes",
-        ms_full_solve=main_out["ms_full_solve"],
-        contacts_last_frame=main_out["num_contacts"])]
-    if not all(math.isfinite(k["ms"]) for k in kernels):
-        raise AssertionError("non-finite kernel time")
+    if quick:
+        return 0
+    pile = phase_pile10k(card)
+    chain = phase_chain(card)
+    pile1k = phase_pile1k(card)
+    passes = "warm + 1 velocity + 1 displacement pass"
+    kernels = [
+        _row("contact_solver_streamed (K1)",
+             "phyx_tpu_torch/csrc/contact_solver_streamed.cu",
+             "phyx_tpu/kernels/contact_solver_streamed.py:58", pile,
+             f"{passes} at the 10k pile frame",
+             max_abs_err_small_frames=small["K1"],
+             ms_full_solve_chain_frame=chain["k1_ms_full_solve"]),
+        _row("contact_solver (K2)", "phyx_tpu_torch/csrc/contact_solver.cu",
+             "phyx_tpu/kernels/contact_solver.py:50", chain,
+             f"{passes} at the 1000-link chain frame",
+             max_abs_err_small_frames=small["K2"],
+             launches_pile1k=pile1k["launches"], ms_pile1k=pile1k["ms"],
+             plain_ms_pile1k=pile1k["plain_ms"],
+             bound_ms_pile1k=pile1k["bound_ms"],
+             ms_full_solve_pile1k=pile1k["ms_full_solve"],
+             ns_per_visit_pile1k=pile1k["ns_per_visit"]),
+    ]
+    for k in kernels:
+        k["max_abs_err"] = max(k["max_abs_err"], k["max_abs_err_small_frames"])
+        if not all(math.isfinite(k[key]) for key in ("ms", "plain_ms",
+                                                     "bound_ms")):
+            raise AssertionError(f"non-finite time in {k['name']}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

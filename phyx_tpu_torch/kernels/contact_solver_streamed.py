@@ -1,27 +1,36 @@
-"""The serial contact solve: warm start, velocity passes, displacement
-passes, in the exact Gauss-Seidel order of the oracle.
+"""The serial solve with the body table in device memory: warm start,
+velocity passes, displacement passes, in the exact Gauss-Seidel order of
+the oracle, over contact rows and then user-joint rows.
 
 Counterpart of ``phyx_tpu/kernels/contact_solver_streamed.py``
-(``_streamed_kernel``, ``solve_contacts_streamed``) for contact rows.  The
-kernel is ``csrc/contact_solver_streamed.cu``, built with ``nvcc`` at first
-use into ``phyx_tpu_torch/_build/`` and called through ``ctypes``.
+(``_streamed_kernel``, ``solve_contacts_streamed``).  The kernel is
+``csrc/contact_solver_streamed.cu``; its visits are ``solve_rows`` in
+``csrc/solve_rows.cuh``, shared with the fused kernel
+(``kernels/contact_solver.py``), which computes the same function with its
+state in shared memory.  Built with ``nvcc`` at first use
+(``kernels/nvcc.py``) and called through ``ctypes``.
 
 * ``solve_contacts_streamed`` is the wrapper: on CUDA tensors it launches
   the kernel (or raises); on CPU tensors it runs the plain version.
-* ``solve_contacts_streamed_plain`` is the plain version: the same visits
-  in the same order as scalar float32 torch operations.  Each visit's
-  arithmetic is written in the kernel's order, and the kernel is built
-  with ``-fmad=false``, so the two agree to the bit on the same inputs.
+* ``solve_contacts_streamed_plain`` is the plain version of both kernels:
+  the same visits in the same order as scalar float32 torch operations.
+  Each visit's arithmetic is written in the kernels' order, and they are
+  built with ``-fmad=false``, so all three agree to the bit on the same
+  inputs.
 
 Layout (flat, as in the reference): body rows ``(N*8,)`` f32 of
 ``[vx, vy, w, inv_mass, inv_inertia, dvx, dvy, dw]``; plain body ids
-``b1``/``b2`` ``(R,)`` int32 (the kernel computes row offsets); contact
-rows ``con`` ``(R*12,)`` f32 of ``[nx, ny, r1x, r1y, r2x, r2y, mass_n,
-mass_t, friction, dst_v, dst_dv, c_nt]``; warm impulses ``(R*2,)`` f32.
-Rows ``[0, num)`` are visited; the rest are never touched.  Returns the
-updated body rows, the accumulators ``(R*4,)`` (normal, tangent,
-displacement, unused; zero past ``num``) and the residual ``(1,)``: the
-max |impulse delta| of the last executed velocity pass.
+``b1``/``b2`` ``(R,)`` int32 (the kernels clamp them into ``[0, N)`` and
+compute row offsets); rows ``con`` ``(R*12,)`` f32 and warm impulses
+``(R*2,)`` f32.  Slots ``[0, c_cap)`` are contact rows ``[nx, ny, r1x, r1y,
+r2x, r2y, mass_n, mass_t, friction, dst_v, dst_dv, c_nt]``, of which
+``[0, num_contacts)`` are visited; slots ``[c_cap, R)`` are joint rows
+(encodings in ``joints.py``), of which ``[c_cap, c_cap + num_joints)`` are
+visited after the contacts in every pass.  Returns the updated body rows,
+the accumulators ``(R*4,)`` (contacts: normal, tangent, displacement,
+unused; joints: velocity impulse x, y, displacement impulse x, y; zero in
+slots not visited) and the residual ``(1,)``: the max |impulse delta| of
+the last executed velocity pass, contacts and joints.
 
 Gates: from the second velocity pass on, a pass is skipped once the
 previous executed pass's residual is below ``tols[0]``; displacement
@@ -33,63 +42,22 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import tempfile
 from typing import Optional
 
 import torch
 
-_PKG = pathlib.Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "contact_solver_streamed.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+from phyx_tpu_torch.kernels import nvcc
 
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): "
-                       "the CUDA solve kernel cannot be built")
+SOURCE = nvcc.CSRC / "contact_solver_streamed.cu"
 
 
 @functools.lru_cache(maxsize=1)
 def build() -> tuple:
     """Compile the kernel (once per source hash) and load it.  Returns
     (ctypes library, nvcc's report or "" when the build was cached)."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"contact_solver_streamed_{tag}.so"
-    report = ""
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                capture_output=True, text=True, timeout=600)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-            report = proc.stdout + proc.stderr
-            os.replace(tmp, so)   # atomic: concurrent builds agree
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    lib = ctypes.CDLL(str(so))
+    lib, report = nvcc.load(SOURCE)
     fn = lib.phyx_contact_solve_streamed
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, report
@@ -108,19 +76,34 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name}: on {t.device}, expected {device}")
 
 
-def _no_joint_rows(num_joints):
-    if num_joints is not None and (torch.is_tensor(num_joints)
-                                   or num_joints > 0):
-        raise NotImplementedError("joint rows in the solve kernel are not "
-                                  "ported yet: ROADMAP M9")
-
-
-def _tolerances(tols, device):
-    """(2,) f32 thresholds; ``None`` (ungated) is zeros, which never fire.
-    Built on the device: no host-to-device copy per frame."""
+def check_inputs(body_flat, b1, b2, con_flat, warm_flat, num_contacts,
+                 vel_iters, pos_iters, num_joints, c_cap, tols) -> tuple:
+    """Checks the solve's inputs (metadata only: nothing is read back).
+    Returns (n, r, c_cap, tols), with ``tols`` made a (2,) tensor on the
+    device (zeros, which never fire, when ungated)."""
+    device = body_flat.device
+    n = body_flat.numel() // 8
+    r = b1.numel()
+    _check("body_flat", body_flat, torch.float32, (n * 8,), device)
+    _check("b1", b1, torch.int32, (r,), device)
+    _check("b2", b2, torch.int32, (r,), device)
+    _check("con_flat", con_flat, torch.float32, (r * 12,), device)
+    _check("warm_flat", warm_flat, torch.float32, (r * 2,), device)
+    _check("num_contacts", num_contacts, torch.int32, (), device)
+    if num_joints is not None:
+        _check("num_joints", num_joints, torch.int32, (), device)
+    c_cap = r if c_cap is None else int(c_cap)
+    if not 0 <= c_cap <= r:
+        raise ValueError(f"c_cap {c_cap} outside [0, {r}]")
+    if num_joints is None and c_cap != r:
+        raise ValueError("joint slots given without num_joints")
+    if n == 0 or vel_iters < 0 or pos_iters < 0:
+        raise ValueError("need at least one body and non-negative passes")
     if tols is None:
-        return torch.zeros((2,), dtype=torch.float32, device=device)
-    return tols
+        # a fill on the device, not a host-to-device copy per frame
+        tols = torch.zeros((2,), dtype=torch.float32, device=device)
+    _check("tols", tols, torch.float32, (2,), device)
+    return n, r, c_cap, tols
 
 
 def solve_contacts_streamed(
@@ -132,33 +115,21 @@ def solve_contacts_streamed(
     num_contacts: torch.Tensor,   # () int32, on the device: never read back
     vel_iters: int,
     pos_iters: int,
-    num_joints=None,
+    num_joints: Optional[torch.Tensor] = None,   # () int32, on the device
+    c_cap: Optional[int] = None,  # contact slots; joint slots at [c_cap, R)
     tols: Optional[torch.Tensor] = None,   # (2,) f32 [vel, pos] thresholds
 ):
     """Returns (body_flat', acc (R*4,), residual (1,)) — see the module
     docstring.  CUDA tensors launch the kernel; CPU tensors take the plain
     version.  ``solve_contacts_streamed.launches`` counts kernel launches."""
-    _no_joint_rows(num_joints)
+    args = (body_flat, b1, b2, con_flat, warm_flat, num_contacts, vel_iters,
+            pos_iters, num_joints, c_cap)
+    n, r, c_cap, tols = check_inputs(*args, tols)
     device = body_flat.device
-    n = body_flat.numel() // 8
-    r = b1.numel()
-    _check("body_flat", body_flat, torch.float32, (n * 8,), device)
-    _check("b1", b1, torch.int32, (r,), device)
-    _check("b2", b2, torch.int32, (r,), device)
-    _check("con_flat", con_flat, torch.float32, (r * 12,), device)
-    _check("warm_flat", warm_flat, torch.float32, (r * 2,), device)
-    _check("num_contacts", num_contacts, torch.int32, (), device)
-    if tols is not None:
-        _check("tols", tols, torch.float32, (2,), device)
-    tols = _tolerances(tols, device)
     if device.type == "cpu":
-        return solve_contacts_streamed_plain(
-            body_flat, b1, b2, con_flat, warm_flat, num_contacts,
-            vel_iters, pos_iters, tols=tols)
+        return solve_contacts_streamed_plain(*args, tols=tols)
     if device.type != "cuda":
         raise NotImplementedError(f"no solve kernel for {device.type}")
-    if n == 0 or vel_iters < 0 or pos_iters < 0:
-        raise ValueError("need at least one body and non-negative passes")
 
     lib, _ = build()
     body_out = body_flat.clone()
@@ -169,10 +140,12 @@ def solve_contacts_streamed(
         err = lib.phyx_contact_solve_streamed(
             body_out.data_ptr(), b1.data_ptr(), b2.data_ptr(),
             con_flat.data_ptr(), warm_flat.data_ptr(), acc.data_ptr(),
-            res.data_ptr(), num_contacts.data_ptr(), tols.data_ptr(),
-            n, r, int(vel_iters), int(pos_iters), stream)
+            res.data_ptr(), num_contacts.data_ptr(),
+            None if num_joints is None else num_joints.data_ptr(),
+            tols.data_ptr(), n, c_cap, r - c_cap, int(vel_iters),
+            int(pos_iters), stream)
     if err != 0:
-        raise RuntimeError(f"contact solve kernel launch failed: CUDA "
+        raise RuntimeError(f"streamed solve kernel launch failed: CUDA "
                            f"error {err}")
     solve_contacts_streamed.launches += 1
     return body_out, acc, res
@@ -183,20 +156,31 @@ solve_contacts_streamed.launches = 0
 
 def solve_contacts_streamed_plain(
     body_flat, b1, b2, con_flat, warm_flat, num_contacts,
-    vel_iters: int, pos_iters: int, num_joints=None, tols=None,
+    vel_iters: int, pos_iters: int, num_joints=None, c_cap=None, tols=None,
 ):
-    """The plain version: the kernel's visits, in its order, as scalar
-    float32 torch operations on the tensors' own device.  It reads ``num``
-    and the ids back to the host, so it is for tests and for comparison
-    with the kernel, never for the main path."""
-    _no_joint_rows(num_joints)
+    """The plain version: the kernels' visits, in their order, as scalar
+    float32 torch operations on the tensors' own device.  It reads the
+    counts, ids and joint kinds back to the host, so it is for tests and
+    for comparison with the kernels, never for the main path on the
+    card."""
     device = body_flat.device
     n = body_flat.numel() // 8
     r = b1.numel()
-    vtol, ptol = _tolerances(tols, device).unbind()
-    num = min(max(int(num_contacts), 0), r)
-    ids1 = [min(max(i, 0), n - 1) for i in b1[:num].tolist()]
-    ids2 = [min(max(j, 0), n - 1) for j in b2[:num].tolist()]
+    c_cap = r if c_cap is None else int(c_cap)
+    if tols is None:
+        tols = torch.zeros((2,), dtype=torch.float32, device=device)
+    vtol, ptol = tols.unbind()
+    num = min(max(int(num_contacts), 0), c_cap)
+    numj = 0 if num_joints is None else min(max(int(num_joints), 0),
+                                            r - c_cap)
+    slots = list(range(num)) + list(range(c_cap, c_cap + numj))
+    ids1 = [min(max(i, 0), n - 1) for i in b1[slots].tolist()]
+    ids2 = [min(max(j, 0), n - 1) for j in b2[slots].tolist()]
+    rows12 = con_flat.reshape(r, 12)[slots]
+    con = [rows12[k].unbind() for k in range(len(slots))]
+    warm = [w.unbind() for w in warm_flat.reshape(r, 2)[slots]]
+    # joint kind per visited joint row: 1.0 revolute, otherwise distance
+    rev = (rows12[num:, 11] == 1.0).tolist()
     table = body_flat.reshape(n, 8)
     rows = {}       # body id -> list of 8 scalar tensors (its live row)
 
@@ -205,13 +189,29 @@ def solve_contacts_streamed_plain(
             rows[i] = list(table[i].unbind())
         return rows[i]
 
-    con = [con_flat[k * 12:(k + 1) * 12].unbind() for k in range(num)]
-    warm = [warm_flat[k * 2:(k + 1) * 2].unbind() for k in range(num)]
     zero = torch.zeros((), dtype=torch.float32, device=device)
-    acc = [[zero] * 4 for _ in range(num)]
+    acc = [[zero] * 4 for _ in slots]
+    contact_visits = range(num)
+    joint_visits = range(num, num + numj)
 
-    # warm pass
-    for k in range(num):
+    def arms(k):
+        """(r1x, r1y, r2x, r2y) of joint visit k."""
+        c = con[k]
+        return c[0:4] if rev[k - num] else c[2:6]
+
+    def joint_apply(bi, bj, g, px, py, off):
+        # every body value read afresh, as the kernels read it
+        r1x, r1y, r2x, r2y = g
+        im1, ii1, im2, ii2 = bi[3], bi[4], bj[3], bj[4]
+        bi[off] = bi[off] - px * im1
+        bi[off + 1] = bi[off + 1] - py * im1
+        bi[off + 2] = bi[off + 2] - ii1 * (r1x * py - r1y * px)
+        bj[off] = bj[off] + px * im2
+        bj[off + 1] = bj[off + 1] + py * im2
+        bj[off + 2] = bj[off + 2] + ii2 * (r2x * py - r2y * px)
+
+    # warm pass: contacts, then joints
+    for k in contact_visits:
         nx, ny, r1x, r1y, r2x, r2y = con[k][:6]
         wn, wt = warm[k]
         px = nx * wn - ny * wt
@@ -225,6 +225,16 @@ def solve_contacts_streamed_plain(
         bj[1] = bj[1] + py * im2
         bj[2] = bj[2] + ii2 * (r2x * py - r2y * px)
         acc[k] = [wn, wt, zero, zero]
+    for k in joint_visits:
+        c = con[k]
+        wx, wy = warm[k]
+        is_rev = rev[k - num]
+        if is_rev:
+            px, py = wx, wy
+        else:
+            px, py = c[0] * wx, c[1] * wx
+        joint_apply(row(ids1[k]), row(ids2[k]), arms(k), px, py, 0)
+        acc[k] = [wx, wy if is_rev else zero, zero, zero]
 
     res = zero
     converged = False
@@ -232,7 +242,7 @@ def solve_contacts_streamed_plain(
         if converged:
             continue
         res = zero
-        for k in range(num):
+        for k in contact_visits:
             nx, ny, r1x, r1y, r2x, r2y, mn, mt, fr, dstv, _, ctn = con[k]
             bi, bj = row(ids1[k]), row(ids2[k])
             im1, ii1, im2, ii2 = bi[3], bi[4], bj[3], bj[4]
@@ -263,6 +273,31 @@ def solve_contacts_streamed_plain(
             bj[2] = w2 + ii2 * (r2x * py - r2y * px)
             res = torch.maximum(res, torch.maximum(torch.abs(dn),
                                                    torch.abs(dt)))
+        for k in joint_visits:
+            c = con[k]
+            g = arms(k)
+            r1x, r1y, r2x, r2y = g
+            bi, bj = row(ids1[k]), row(ids2[k])
+            vx1, vy1, w1 = bi[0], bi[1], bi[2]
+            vx2, vy2, w2 = bj[0], bj[1], bj[2]
+            dvx = vx2 - w2 * r2y - vx1 + w1 * r1y
+            dvy = vy2 + w2 * r2x - vy1 - w1 * r1x
+            a = acc[k]
+            if rev[k - num]:    # impulse -(M dv)
+                px = -(c[4] * dvx + c[5] * dvy)
+                py = -(c[5] * dvx + c[6] * dvy)
+                a[0] = a[0] + px
+                a[1] = a[1] + py
+            else:               # impulse -m (n.dv) n
+                nx, ny = c[0], c[1]
+                dd = -c[6] * (nx * dvx + ny * dvy)
+                px = nx * dd
+                py = ny * dd
+                a[0] = a[0] + dd
+                a[1] = a[1] + 0.0
+            joint_apply(bi, bj, g, px, py, 0)
+            res = torch.maximum(res, torch.maximum(torch.abs(px),
+                                                   torch.abs(py)))
         converged = bool(res < vtol)
 
     converged = False
@@ -270,7 +305,7 @@ def solve_contacts_streamed_plain(
         if converged:
             continue
         pres = zero
-        for k in range(num):
+        for k in contact_visits:
             nx, ny, r1x, r1y, r2x, r2y, mn = con[k][:7]
             ddv = con[k][10]
             bi, bj = row(ids1[k]), row(ids2[k])
@@ -294,14 +329,40 @@ def solve_contacts_streamed_plain(
             bj[6] = py2 + iy * im2
             bj[7] = q2 + ii2 * (r2x * iy - r2y * ix)
             pres = torch.maximum(pres, torch.abs(d))
+        for k in joint_visits:
+            c = con[k]
+            g = arms(k)
+            r1x, r1y, r2x, r2y = g
+            bi, bj = row(ids1[k]), row(ids2[k])
+            px1, py1, q1 = bi[5], bi[6], bi[7]
+            px2, py2, q2 = bj[5], bj[6], bj[7]
+            dvx = px2 - q2 * r2y - px1 + q1 * r1y
+            dvy = py2 + q2 * r2x - py1 - q1 * r1x
+            a = acc[k]
+            if rev[k - num]:    # toward the target (dstx, dsty)
+                ex = c[7] - dvx
+                ey = c[8] - dvy
+                px = c[4] * ex + c[5] * ey
+                py = c[5] * ex + c[6] * ey
+                a[2] = a[2] + px
+                a[3] = a[3] + py
+            else:               # toward the scalar target along n
+                nx, ny = c[0], c[1]
+                dd = c[6] * (c[7] - (nx * dvx + ny * dvy))
+                px = nx * dd
+                py = ny * dd
+                a[2] = a[2] + dd
+                a[3] = a[3] + 0.0
+            joint_apply(bi, bj, g, px, py, 5)
+            pres = torch.maximum(pres, torch.maximum(torch.abs(px),
+                                                     torch.abs(py)))
         converged = bool(pres < ptol)
 
     body_out = body_flat.clone()
     out = body_out.view(n, 8)
     for i, vals in rows.items():
         out[i] = torch.stack(vals)
-    acc_out = torch.zeros((r * 4,), dtype=torch.float32, device=device)
-    if num:
-        acc_out[:num * 4] = torch.stack([torch.stack(a) for a in acc]
-                                        ).reshape(-1)
-    return body_out, acc_out, res.reshape(1)
+    acc_out = torch.zeros((r, 4), dtype=torch.float32, device=device)
+    if slots:
+        acc_out[slots] = torch.stack([torch.stack(a) for a in acc])
+    return body_out, acc_out.reshape(-1), res.reshape(1)

@@ -5,22 +5,26 @@ feeds the serial solve kernel (``phyx_tpu/solver.py``).
   tangent scalars, effective masses, the restitution target velocity and
   the displacement target (penetration - slop), all batched.
 * ``velocity_threshold`` / ``position_threshold``: the runtime thresholds
-  of the residual gates.
-* ``solve_pallas``: packs bodies and contacts into the kernel's flat rows
-  and unpacks its output — the counterpart of the reference's
-  ``solve_pallas`` for contact rows (joint rows follow with ROADMAP M9).
+  of the residual gates, scaled by the frame's contact and joint warm
+  impulses.
+* ``solve_pallas``: packs bodies, contacts and joint rows into the solve
+  kernels' flat rows and unpacks their output — the counterpart of the
+  reference's ``solve_pallas`` for the fused and streamed kernels.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from phyx_tpu_torch import math2d as m2
 from phyx_tpu_torch.config import SimConfig
+from phyx_tpu_torch.kernels.contact_solver import solve_contacts_fused
 from phyx_tpu_torch.kernels.contact_solver_streamed import \
     solve_contacts_streamed
 from phyx_tpu_torch.narrowphase import Contacts
-from phyx_tpu_torch.types import Bodies
+from phyx_tpu_torch.types import Bodies, Joints
 
 
 def prepare(contacts: Contacts, cfg: SimConfig, pair_props) -> Contacts:
@@ -72,77 +76,109 @@ def prepare(contacts: Contacts, cfg: SimConfig, pair_props) -> Contacts:
     )
 
 
-def impulse_scale(contacts: Contacts) -> torch.Tensor:
+def impulse_scale(contacts: Contacts,
+                  joint_warm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Scene impulse scale of the relative gates: max |warm impulse| of
-    the frame (0 on cold starts, which disables the relative gates)."""
+    the frame, contacts and user joints (0 on cold starts, which disables
+    the relative gates)."""
     s = torch.abs(torch.where(contacts.valid, contacts.warm_n, 0.0)).max()
-    return torch.maximum(s, torch.abs(
+    s = torch.maximum(s, torch.abs(
         torch.where(contacts.valid, contacts.warm_t, 0.0)).max())
+    if joint_warm is not None and joint_warm.shape[0]:
+        s = torch.maximum(s, torch.abs(joint_warm).max())
+    return s
 
 
-def velocity_threshold(cfg: SimConfig, contacts: Contacts) -> torch.Tensor:
+def velocity_threshold(cfg: SimConfig, contacts: Contacts,
+                       joint_warm: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """max(velocity_tol, velocity_rel_tol * impulse_scale); () f32."""
     t = torch.full((), cfg.velocity_tol, dtype=torch.float32,
                    device=contacts.valid.device)
     if cfg.velocity_rel_tol > 0.0:
-        t = torch.maximum(t, cfg.velocity_rel_tol * impulse_scale(contacts))
+        t = torch.maximum(t, cfg.velocity_rel_tol
+                          * impulse_scale(contacts, joint_warm))
     return t
 
 
-def position_threshold(cfg: SimConfig, contacts: Contacts) -> torch.Tensor:
+def position_threshold(cfg: SimConfig, contacts: Contacts,
+                       joint_warm: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """position_rel_tol * impulse_scale; () f32, 0 when the gate is off."""
     if cfg.position_rel_tol <= 0.0:
         return torch.zeros((), dtype=torch.float32,
                            device=contacts.valid.device)
-    return cfg.position_rel_tol * impulse_scale(contacts)
+    return cfg.position_rel_tol * impulse_scale(contacts, joint_warm)
 
 
-def pack_streamed(bodies: Bodies, contacts: Contacts,
-                  num_contacts: torch.Tensor, cfg: SimConfig) -> dict:
-    """The kernel's arguments for ``contacts`` (already compacted: live
-    rows first).  Body rows are [vx, vy, w, inv_mass, inv_inertia,
-    dvx, dvy, dw] with the pseudo-velocities starting at zero; contact rows
-    are [n, r1, r2, mass_n, mass_t, friction, dst_v, dst_dv, c_nt]."""
+def pack_rows(bodies: Bodies, contacts: Contacts, num_contacts: torch.Tensor,
+              cfg: SimConfig, joints: Optional[Joints] = None,
+              joint_rows: Optional[torch.Tensor] = None,
+              joint_warm: Optional[torch.Tensor] = None) -> dict:
+    """The solve kernels' arguments for ``contacts`` (already compacted:
+    live rows first) and, when given, the joints' prepared rows and warm
+    impulses (``joints.prepare_joint_rows``), appended at slot C.  Body rows
+    are [vx, vy, w, inv_mass, inv_inertia, dvx, dvy, dw] with the
+    pseudo-velocities starting at zero; contact rows are [n, r1, r2, mass_n,
+    mass_t, friction, dst_v, dst_dv, c_nt]."""
     n = bodies.capacity
+    c = contacts.valid.shape[0]
     body_flat = torch.cat([
         bodies.vel, bodies.angvel[:, None], bodies.inv_mass[:, None],
         bodies.inv_inertia[:, None],
         torch.zeros((n, 3), dtype=torch.float32, device=bodies.vel.device),
     ], dim=1).reshape(-1)
-    con_flat = torch.stack([
+    con = torch.stack([
         contacts.normal[:, 0], contacts.normal[:, 1],
         contacts.r1[:, 0], contacts.r1[:, 1],
         contacts.r2[:, 0], contacts.r2[:, 1],
         contacts.mass_n, contacts.mass_t, contacts.friction,
         contacts.dst_v, contacts.dst_dv, contacts.c_nt,
-    ], dim=1).reshape(-1)
-    warm_flat = torch.stack([contacts.warm_n, contacts.warm_t],
-                            dim=1).reshape(-1)
+    ], dim=1)
+    warm = torch.stack([contacts.warm_n, contacts.warm_t], dim=1)
+    b1, b2 = contacts.b1, contacts.b2
+    num_joints = None
+    if joints is not None and joints.capacity:
+        con = torch.cat([con, joint_rows])
+        warm = torch.cat([warm, joint_warm])
+        b1 = torch.cat([b1, torch.clamp(joints.b1, max=n - 1)])
+        b2 = torch.cat([b2, torch.clamp(joints.b2, max=n - 1)])
+        # live joints fill a prefix of the slots; a device count
+        num_joints = (joints.kind != 0).sum(dtype=torch.int32)
+    else:
+        joint_warm = None
     # an ungated kind's threshold is 0.0, which never fires
     tols = None
     if (cfg.velocity_tol > 0.0 or cfg.velocity_rel_tol > 0.0
             or cfg.position_rel_tol > 0.0):
-        tols = torch.stack([velocity_threshold(cfg, contacts),
-                            position_threshold(cfg, contacts)])
-    return dict(body_flat=body_flat, b1=contacts.b1.contiguous(),
-                b2=contacts.b2.contiguous(), con_flat=con_flat,
-                warm_flat=warm_flat,
+        tols = torch.stack([velocity_threshold(cfg, contacts, joint_warm),
+                            position_threshold(cfg, contacts, joint_warm)])
+    return dict(body_flat=body_flat, b1=b1.contiguous(),
+                b2=b2.contiguous(), con_flat=con.reshape(-1),
+                warm_flat=warm.reshape(-1),
                 num_contacts=num_contacts.to(torch.int32),
                 vel_iters=cfg.velocity_iterations,
-                pos_iters=cfg.position_iterations, tols=tols)
+                pos_iters=cfg.position_iterations, num_joints=num_joints,
+                c_cap=c, tols=tols)
 
 
 def solve_pallas(bodies: Bodies, contacts: Contacts,
-                 num_contacts: torch.Tensor, cfg: SimConfig):
+                 num_contacts: torch.Tensor, cfg: SimConfig, fused: bool,
+                 joints: Optional[Joints] = None,
+                 joint_rows: Optional[torch.Tensor] = None,
+                 joint_warm: Optional[torch.Tensor] = None):
     """Warm start + velocity + position solve in the exact serial
-    Gauss-Seidel order, through the serial solve kernel.  Returns
-    (bodies', accum_n, accum_t, residual)."""
+    Gauss-Seidel order, contacts then joints, through the fused kernel
+    (``fused``) or the streamed one.  Returns (bodies', accum_n, accum_t,
+    residual, joint_accum (J, 2))."""
     n = bodies.capacity
     c = contacts.valid.shape[0]
-    body_out, acc, res = solve_contacts_streamed(
-        **pack_streamed(bodies, contacts, num_contacts, cfg))
+    j = 0 if joints is None else joints.capacity
+    kernel = solve_contacts_fused if fused else solve_contacts_streamed
+    body_out, acc, res = kernel(**pack_rows(
+        bodies, contacts, num_contacts, cfg, joints, joint_rows, joint_warm))
     body_out = body_out.reshape(n, 8)
-    acc = acc.reshape(c, 4)
+    acc = acc.reshape(c + j, 4)
     bodies = bodies.replace(vel=body_out[:, 0:2], angvel=body_out[:, 2],
                             dvel=body_out[:, 5:7], dangvel=body_out[:, 7])
-    return bodies, acc[:, 0], acc[:, 1], res[0]
+    return bodies, acc[:c, 0], acc[:c, 1], res[0], acc[c:, 0:2]

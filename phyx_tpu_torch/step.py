@@ -4,18 +4,22 @@ One frame, with no host round-trip:
 
     integrate velocities (gravity)
     -> broadphase (grid sweep & prune, static shapes)
+    -> jointed-pair exclusion
     -> narrowphase (batched SAT + clip)
     -> contact-cache join (warm-start impulses carried across frames)
-    -> prepare + valid-first compaction + serial solve kernel (warm start,
-       velocity passes, displacement passes)
+    -> prepare contacts and joint rows + valid-first compaction + serial
+       solve kernel (warm start, velocity passes, displacement passes;
+       contact rows, then joint rows)
     -> integrate positions (velocity + split-impulse pseudo-velocity)
     -> rebuild cache, emit stats
 
-Ported so far: ``solver_backend="pallas"`` for scenes without joints.  Every
-capacity goes to the one serial solve kernel: it keeps the body table in
-device memory, so the reference's on-chip budget tiers (fused, streamed,
-tiled) have no counterpart here — the fused and streamed kernels compute
-the same thing bit for bit.
+Ported so far: ``solver_backend="pallas"``, with and without user joints.
+One predicate picks the kernel (``kernels/contact_solver.fits``): the
+fused kernel, whose body table and accumulators sit in one block's shared
+memory, when they fit its 227 KB (the 1k pile, the 1000-link chain); the
+streamed kernel, which keeps them in device memory, otherwise (the 10k
+pile).  The two compute the same thing bit for bit.  The reference's TPU
+budget tiers do not carry over.
 """
 
 from __future__ import annotations
@@ -27,11 +31,13 @@ import torch
 
 from phyx_tpu_torch import math2d as m2
 from phyx_tpu_torch import solver
-from phyx_tpu_torch.broadphase import broadphase
-from phyx_tpu_torch.cache import build_cache, warm_start_from_cache
+from phyx_tpu_torch.broadphase import Pairs, broadphase, lex_sort_pairs
+from phyx_tpu_torch.cache import build_cache, lex_join, warm_start_from_cache
 from phyx_tpu_torch.config import SimConfig
+from phyx_tpu_torch.joints import prepare_joint_rows
+from phyx_tpu_torch.kernels import contact_solver
 from phyx_tpu_torch.narrowphase import Contacts, narrowphase_with_props
-from phyx_tpu_torch.types import Bodies, SolverStats, State
+from phyx_tpu_torch.types import EMPTY, Bodies, Joints, SolverStats, State
 
 # the fields the solve reads, permuted together by the compaction.  `valid`
 # keeps the original order, as in the reference (step.py:246-255): the
@@ -64,6 +70,23 @@ def integrate_positions(bodies: Bodies, cfg: SimConfig) -> Bodies:
                           dangvel=torch.zeros_like(bodies.dangvel))
 
 
+def exclude_joint_pairs(pairs: Pairs, joints: Joints) -> Pairs:
+    """Drop candidate pairs whose bodies a user joint connects (collide
+    connected = false): their contacts would fight the joint.  The pair
+    buffer is re-sorted with the dropped slots at EMPTY, last, and ``num``
+    shrinks by the number dropped, as in the reference."""
+    live = joints.kind != 0
+    empty = torch.full_like(joints.b1, EMPTY)
+    ja = torch.where(live, torch.minimum(joints.b1, joints.b2), empty)
+    jb = torch.where(live, torch.maximum(joints.b1, joints.b2), empty)
+    _, hit = lex_join(ja, jb, pairs.pi, pairs.pj)
+    pi = torch.where(hit, EMPTY, pairs.pi)
+    pj = torch.where(hit, EMPTY, pairs.pj)
+    pi, pj = lex_sort_pairs(pi, pj)
+    return pairs.replace(pi=pi, pj=pj, valid=pi != EMPTY,
+                         num=pairs.num - hit.sum(dtype=torch.int32))
+
+
 def compact_contacts(contacts: Contacts):
     """Live contacts first, in their original order (a stable sort), so the
     kernel visits only live rows in the reference's sweep order.  Returns
@@ -76,39 +99,58 @@ def compact_contacts(contacts: Contacts):
     return compacted, order, contacts.valid.sum(dtype=torch.int32)
 
 
-def solve_stage(bodies: Bodies, contacts: Contacts, cfg: SimConfig):
-    """Compaction + the serial solve + the accumulator un-permute.
-    Returns (bodies', accum_n, accum_t, residual)."""
+def prepare_joint_stage(bodies: Bodies, joints: Joints, cfg: SimConfig):
+    """The joints' solver rows and warm impulses from the bodies after
+    velocity integration; (None, None) for a scene without joint slots."""
+    if joints.capacity == 0:
+        return None, None
+    return prepare_joint_rows(bodies, joints, cfg)
+
+
+def solve_stage(bodies: Bodies, contacts: Contacts, joints: Joints,
+                joint_rows, joint_warm, cfg: SimConfig):
+    """Compaction + the serial solve (contacts, then joint rows) + the
+    accumulator un-permute.  Returns (bodies', accum_n, accum_t, residual,
+    joints with this frame's accumulated impulses)."""
     if cfg.solver_backend != "pallas":
         raise NotImplementedError(
             f"solver_backend={cfg.solver_backend!r} is not ported yet: "
             "ROADMAP M10 (xla, the colored backend) / M11 (pallas_tiled)")
     compacted, order, num_live = compact_contacts(contacts)
-    bodies, accum_n, accum_t, residual = solver.solve_pallas(
-        bodies, compacted, num_live, cfg)
+    # the tier predicate: the fused kernel when its state fits one block's
+    # shared memory, else the streamed one
+    fused = contact_solver.fits(bodies.capacity,
+                                order.shape[0] + joints.capacity)
+    (bodies, accum_n, accum_t, residual,
+     joint_accum) = solver.solve_pallas(
+        bodies, compacted, num_live, cfg, fused, joints, joint_rows,
+        joint_warm)
     back = torch.zeros((order.shape[0], 2), dtype=torch.float32,
                        device=order.device)
     back[order] = torch.stack([accum_n, accum_t], dim=1)
-    return bodies, back[:, 0], back[:, 1], residual
+    if joints.capacity:
+        joints = joints.replace(accum=joint_accum)
+    return bodies, back[:, 0], back[:, 1], residual, joints
 
 
 def contact_stage(state: State, cfg: SimConfig):
     """Everything before the solve: integrate velocities, broadphase,
-    narrowphase, warm start and prepare.  Returns (bodies, pairs,
-    prepared contacts)."""
-    if state.joints.capacity:
-        raise NotImplementedError("scenes with joints are not ported yet: "
-                                  "ROADMAP M9")
+    jointed-pair exclusion, narrowphase, warm start, prepare and the
+    joints' rows.  Returns (bodies, pairs, prepared contacts, joint rows,
+    joint warm impulses)."""
     bodies = integrate_velocities(state.bodies, cfg)
     pairs = broadphase(bodies, cfg)
+    if state.joints.capacity:
+        pairs = exclude_joint_pairs(pairs, state.joints)
     contacts, pair_props = narrowphase_with_props(bodies, pairs, cfg)
     contacts = warm_start_from_cache(contacts, pairs, state.cache)
     contacts = solver.prepare(contacts, cfg, pair_props)
-    return bodies, pairs, contacts
+    joint_rows, joint_warm = prepare_joint_stage(bodies, state.joints, cfg)
+    return bodies, pairs, contacts, joint_rows, joint_warm
 
 
-def finish_stage(state: State, cfg: SimConfig, bodies: Bodies, pairs,
-                 contacts: Contacts, accum_n: torch.Tensor,
+def finish_stage(state: State, cfg: SimConfig, bodies: Bodies, joints,
+                 pairs, contacts: Contacts, accum_n: torch.Tensor,
                  accum_t: torch.Tensor, residual: torch.Tensor) -> State:
     """Everything after the solve: integrate positions, rebuild the cache,
     emit stats."""
@@ -128,16 +170,17 @@ def finish_stage(state: State, cfg: SimConfig, bodies: Bodies, pairs,
         ovf_band=pairs.ovf_band,
         ovf_slab=pairs.ovf_slab,
     )
-    return State(bodies=bodies, joints=state.joints, cache=cache,
-                 stats=stats)
+    return State(bodies=bodies, joints=joints, cache=cache, stats=stats)
 
 
 def step(state: State, cfg: SimConfig) -> State:
     """One simulation frame: State -> State, no host round-trip."""
-    bodies, pairs, contacts = contact_stage(state, cfg)
-    bodies, accum_n, accum_t, residual = solve_stage(bodies, contacts, cfg)
-    return finish_stage(state, cfg, bodies, pairs, contacts, accum_n,
-                        accum_t, residual)
+    bodies, pairs, contacts, joint_rows, joint_warm = contact_stage(
+        state, cfg)
+    bodies, accum_n, accum_t, residual, joints = solve_stage(
+        bodies, contacts, state.joints, joint_rows, joint_warm, cfg)
+    return finish_stage(state, cfg, bodies, joints, pairs, contacts,
+                        accum_n, accum_t, residual)
 
 
 def rollout(state: State, cfg: SimConfig, num_steps: int) -> State:
@@ -157,7 +200,8 @@ def stats_dict(stats: SolverStats) -> dict:
 
 def solve_inputs(state: State, cfg: SimConfig) -> dict:
     """The solve kernel's arguments for the frame ``step(state, cfg)``
-    would run (for comparing the kernel with its plain version)."""
-    bodies, _, contacts = contact_stage(state, cfg)
+    would run (for comparing the kernels with their plain version)."""
+    bodies, _, contacts, joint_rows, joint_warm = contact_stage(state, cfg)
     compacted, _, num_live = compact_contacts(contacts)
-    return solver.pack_streamed(bodies, compacted, num_live, cfg)
+    return solver.pack_rows(bodies, compacted, num_live, cfg, state.joints,
+                            joint_rows, joint_warm)

@@ -77,16 +77,17 @@ class Bodies:
 
 @_record
 class Joints:
-    """SoA user-joint state, fixed capacity J.  The port runs jointless
-    scenes only so far (ROADMAP M9); ``State`` carries an empty record."""
+    """SoA user-joint state, fixed capacity J (static topology): revolute
+    and distance joints, solved as rows after the contacts (``joints.py``).
+    Live joints fill slots ``[0, count)``; free slots have kind 0."""
 
     kind: torch.Tensor    # (J,) int32: 0 none, 1 revolute, 2 distance
     b1: torch.Tensor      # (J,) int32
     b2: torch.Tensor      # (J,) int32
-    a1: torch.Tensor      # (J, 2) f32
-    a2: torch.Tensor      # (J, 2) f32
-    rest: torch.Tensor    # (J,) f32
-    accum: torch.Tensor   # (J, 2) f32
+    a1: torch.Tensor      # (J, 2) f32 local anchor on body 1
+    a2: torch.Tensor      # (J, 2) f32 local anchor on body 2
+    rest: torch.Tensor    # (J,) f32 distance-joint rest length
+    accum: torch.Tensor   # (J, 2) f32 warm-start velocity impulse
 
     @property
     def capacity(self) -> int:
@@ -176,7 +177,7 @@ class State:
 
     @staticmethod
     def zeros(max_bodies: int, max_pairs: int, max_joints: int = 0,
-              device="cpu") -> "State":
+              device="cuda") -> "State":
         return State(
             bodies=Bodies.zeros(max_bodies, device),
             joints=Joints.empty(max_joints, device),

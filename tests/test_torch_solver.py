@@ -54,7 +54,8 @@ def frame_state(seed, boxes=200):
 def test_prepare_matches_jax():
     st = frame_state(0)
     cfg = SimConfig(**KW)
-    bodies, pairs, contacts = contact_stage(state_from_numpy(st, "cpu"), cfg)
+    bodies, pairs, contacts, _, _ = contact_stage(
+        state_from_numpy(st, "cpu"), cfg)
     # the same narrowphase output, handed to the JAX prepare as numpy
     raw, props = narrowphase_with_props(bodies, pairs, cfg)
     from phyx_tpu.narrowphase import Contacts as JaxContacts
@@ -80,7 +81,7 @@ def packed_inputs(seed, gated):
         # thresholds = tol * max warm impulse (0.3): both gates fire within
         # the frame's 10 + 6 passes
         cfg = cfg.replace(velocity_rel_tol=1.0, position_rel_tol=1.0)
-    bodies, _, contacts = contact_stage(
+    bodies, _, contacts, _, _ = contact_stage(
         state_from_numpy(frame_state(seed), "cpu"), cfg)
     rng = np.random.default_rng(seed)
     warm_n = torch.from_numpy(rng.uniform(0.0, 0.3, contacts.valid.shape
@@ -91,7 +92,7 @@ def packed_inputs(seed, gated):
         warm_n=torch.where(contacts.valid, warm_n, 0.0),
         warm_t=torch.where(contacts.valid, warm_t, 0.0))
     compacted, _, num = compact_contacts(contacts)
-    return solver.pack_streamed(bodies, compacted, num, cfg)
+    return solver.pack_rows(bodies, compacted, num, cfg)
 
 
 @functools.lru_cache(maxsize=None)
@@ -152,5 +153,5 @@ def test_wrapper_takes_plain_on_cpu_and_checks_inputs():
         solve_contacts_streamed(**dict(args, b1=args["b1"].long()))
     with pytest.raises(ValueError):
         solve_contacts_streamed(**dict(args, con_flat=args["con_flat"][:-1]))
-    with pytest.raises(NotImplementedError, match="M9"):
-        solve_contacts_streamed(**args, num_joints=3)
+    with pytest.raises(TypeError):      # a count must be a device tensor
+        solve_contacts_streamed(**dict(args, num_joints=3))

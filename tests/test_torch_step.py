@@ -1,5 +1,6 @@
 """The port's whole ``step`` against the JAX package's ``step`` (its fused
-Pallas solver in interpret mode) and against the f64 oracle."""
+Pallas solver in interpret mode) and against the f64 oracle, on piles and
+on the jointed scenes."""
 
 import dataclasses
 
@@ -23,22 +24,34 @@ PILE = dict(max_bodies=64, max_pairs=256, broadphase="sap_grid",
             sap_window=32, solver_backend="pallas")
 ORACLE = dict(max_bodies=32, max_pairs=128, broadphase="n2",
               solver_backend="pallas")
+JOINTED = dict(max_bodies=32, max_pairs=128, max_joints=16,
+               broadphase="sap_grid", sap_window=16, solver_backend="pallas")
+# tests/test_joints.py's oracle configuration
+JOINT_ORACLE = dict(max_bodies=64, max_pairs=256, max_joints=32,
+                    broadphase="n2", solver_backend="pallas")
 
 
 def leaves(state):
     out = {}
-    for rec in ("bodies", "cache", "stats"):
+    for rec in ("bodies", "joints", "cache", "stats"):
         sub = getattr(state, rec)
         for f in dataclasses.fields(sub):
             out[f"{rec}.{f.name}"] = np.asarray(getattr(sub, f.name))
     return out
 
 
-def hold_steps_to_jax(jcfg, cfg, seed):
-    """Ten frames of a 60-box pile, the port's input re-synced from the JAX
+def hold_steps_to_jax(jcfg, cfg, seed=None, scene=None, before=0,
+                      min_contacts=100):
+    """Ten frames of a 60-box pile (or of ``scene(scenes module, cfg)``
+    after ``before`` JAX frames), the port's input re-synced from the JAX
     state every frame: integers (pairs, cache keys, feature ids, counts,
-    overflow counters) exact, floats within 1e-4."""
-    jst = jscenes.pile(jcfg, 60, seed=seed).build()
+    overflow counters, joint slots) exact, floats within 1e-4."""
+    if scene is None:
+        jst = jscenes.pile(jcfg, 60, seed=seed).build()
+    else:
+        jst = scene(jscenes, jcfg).build()
+    for _ in range(before):
+        jst = jax_step(jst, jcfg)
     contacts = []
     for frame in range(10):
         ours = step(state_from_numpy(
@@ -55,7 +68,7 @@ def hold_steps_to_jax(jcfg, cfg, seed):
                 np.testing.assert_allclose(a, b, atol=1e-4, rtol=0,
                                            err_msg=f"frame {frame} {k}")
         contacts.append(int(ref["stats.num_contacts"]))
-    assert max(contacts) > 100
+    assert max(contacts) >= min_contacts
 
 
 def test_step_matches_jax_step():
@@ -124,7 +137,49 @@ def test_unported_backends_raise(backend, roadmap):
 
 
 def test_joints_raise():
-    cfg = SimConfig(**dict(PILE, max_joints=4))
-    st = scenes.pile(cfg, 10, seed=0).build("cpu")
-    with pytest.raises(NotImplementedError, match="M9"):
+    """A jointed scene still raises on the backends not ported yet, and a
+    builder past ``max_joints`` raises."""
+    cfg = SimConfig(**dict(JOINTED, solver_backend="xla"))
+    st = scenes.chain(cfg, 4).build("cpu")
+    with pytest.raises(NotImplementedError, match="M10"):
         step(st, cfg)
+    with pytest.raises(ValueError, match="max_joints"):
+        scenes.chain(SimConfig(**dict(JOINTED, max_joints=3)), 4)
+
+
+@pytest.mark.parametrize("scene,before,min_contacts", [
+    pytest.param(lambda m, cfg: m.chain(cfg, 8), 0, 0, id="chain"),
+    # boxes resting on the planks: revolute rows and contacts together
+    pytest.param(lambda m, cfg: m.bridge(cfg, 8, load_boxes=3), 50, 2,
+                 id="loaded_bridge"),
+    pytest.param(lambda m, cfg: m.net(cfg, 6), 0, 0, id="net"),
+])
+def test_jointed_step_matches_jax_step(scene, before, min_contacts):
+    hold_steps_to_jax(JaxConfig(**JOINTED), SimConfig(**JOINTED),
+                      scene=scene, before=before, min_contacts=min_contacts)
+
+
+def test_gated_jointed_step_matches_jax_step():
+    """Gates on a chain, which has no contacts: the relative gates' impulse
+    scale is the joints' warm impulses alone, and the thresholds stop
+    passes within the frame."""
+    kw = dict(JOINTED, velocity_rel_tol=0.05, position_rel_tol=0.05)
+    hold_steps_to_jax(JaxConfig(**kw), SimConfig(**kw),
+                      scene=lambda m, cfg: m.chain(cfg, 8), before=5,
+                      min_contacts=0)
+
+
+@pytest.mark.parametrize("scene,count", [("chain", 5), ("net", 6)])
+def test_jointed_scene_matches_oracle(scene, count):
+    """60 frames against the f64 oracle at tests/test_joints.py's
+    tolerance, and the scene moves."""
+    cfg = SimConfig(**JOINT_ORACLE)
+    st = getattr(scenes, scene)(cfg, count).build("cpu")
+    ow = getattr(jscenes, scene)(JaxConfig(**JOINT_ORACLE), count).to_oracle()
+    for _ in range(60):
+        st = step(st, cfg)
+        ow.step()
+    k = count + 3 if scene == "net" else count + 2
+    np.testing.assert_allclose(st.bodies.pos[:k].numpy(),
+                               np.asarray(ow.pos)[:k], atol=2e-3)
+    assert float(st.bodies.vel[1:k].abs().max()) > 1e-3
