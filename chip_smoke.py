@@ -6,18 +6,23 @@
 Phases; any failure raises and the script exits non-zero:
 
 1. device  — require CUDA; print the card's name and power limit.
-2. build   — build both solve kernels from ``phyx_tpu_torch/csrc``, one
-             ``nvcc`` each, started together: K1, the streamed kernel
-             (state in device memory), and K2, the fused kernel (state in
-             shared memory).
+2. build   — build the four solve kernels from the three sources of
+             ``phyx_tpu_torch/csrc``, one ``nvcc`` each, started together:
+             K1, the streamed kernel (state in device memory), K2, the
+             fused kernel (state in shared memory), and in one source K3
+             and K5, the slab-major and the routed tiled kernels (the
+             x-rank embedded body table in device memory).
 3. compare — each kernel against the plain torch version on the packed
              solve input of small frames on the card, gates off and on:
-             a 200-box pile (contacts only), a loaded bridge (revolute
-             rows and contacts) and a net (distance rows).  Body rows,
-             accumulators and residual must be equal (exact float32
-             equality), and K1 must equal K2.  Then the whole step on the
-             card against the step on the CPU: a 60-box pile, a 20-link
-             chain and a loaded bridge.
+             K1 and K2 on a 200-box pile (contacts only), a loaded bridge
+             (revolute rows and contacts) and a net (distance rows); K3
+             and K5 on a 300-box pile over three slabs and a 200-box pile
+             with a moving static, K5 on a tiled loaded bridge and net.
+             Body rows, accumulators and residual must be equal (exact
+             float32 equality), and K1 must equal K2.  Then the whole step
+             on the card against the step on the CPU: a 60-box pile, a
+             20-link chain, a loaded bridge and a 150-box tiled pile
+             through K3 and through K5.
 4. pile10k — the 10k-box pile at the bench's settings (cap 16,384 bodies,
              32,256 pairs, sap_grid window 192 / 8 hits, 10+6 passes)
              through ``rollout``: a 300-frame settle in which no step may
@@ -39,6 +44,17 @@ Phases; any failure raises and the script exits non-zero:
              timing, K2 once a frame, the 0.6 penetration bar; stage times;
              K2 against the plain version at the frame's shapes, gates off
              and on.
+7. pile20k — the 20k pile (cap 32,768, 64,000 pairs: the tiled tier,
+             3 slabs of the default 16,384-row stride): 300-frame settle
+             without host waits, slope timing, K3 once a frame and no
+             other kernel; every overflow counter 0, the 0.6 penetration
+             bar, finite state; stage times; K3 against the plain version
+             at the frame's shapes (warm + 1 velocity pass) and timed on
+             all passes; K1 timed on the same frame compacted; one frame
+             through K3 and one through K5 (``tiled_routing=False``)
+             without host waits, K5 launched once, within 5e-3 of the K3
+             frame; K5 against its plain version at that frame's routed
+             shapes (warm + 1 velocity pass) and timed on all passes.
 
 Prints a JSON line per main-path phase (physics, rate, stage times), a
 JSON line of the kernels, the card's ``nvidia-smi`` name and power limit,
@@ -67,22 +83,35 @@ def _sync():
     torch.cuda.synchronize()
 
 
-def _kernels():
-    from phyx_tpu_torch.kernels import contact_solver as K2
-    from phyx_tpu_torch.kernels import contact_solver_streamed as K1
-    return K1, K2
+def _wrappers() -> dict:
+    """Every solve kernel's wrapper, by name."""
+    from phyx_tpu_torch.kernels.contact_solver import solve_contacts_fused
+    from phyx_tpu_torch.kernels.contact_solver_streamed import \
+        solve_contacts_streamed
+    from phyx_tpu_torch.kernels.contact_solver_tiled import (
+        solve_contacts_tiled, solve_contacts_tiled2)
+    return dict(K1=solve_contacts_streamed, K2=solve_contacts_fused,
+                K3=solve_contacts_tiled2, K5=solve_contacts_tiled)
+
+
+def _plains() -> dict:
+    """Every solve kernel's plain version, by name."""
+    from phyx_tpu_torch.kernels.contact_solver_streamed import \
+        solve_contacts_streamed_plain
+    from phyx_tpu_torch.kernels.contact_solver_tiled import (
+        solve_contacts_tiled2_plain, solve_contacts_tiled_plain)
+    return dict(K1=solve_contacts_streamed_plain,
+                K2=solve_contacts_streamed_plain,
+                K3=solve_contacts_tiled2_plain, K5=solve_contacts_tiled_plain)
 
 
 def _reset_counts():
-    K1, K2 = _kernels()
-    K1.solve_contacts_streamed.launches = 0
-    K2.solve_contacts_fused.launches = 0
+    for wrapper in _wrappers().values():
+        wrapper.launches = 0
 
 
 def _counts() -> dict:
-    K1, K2 = _kernels()
-    return dict(K1=K1.solve_contacts_streamed.launches,
-                K2=K2.solve_contacts_fused.launches)
+    return {name: w.launches for name, w in _wrappers().items()}
 
 
 def phase_device() -> str:
@@ -104,14 +133,18 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    import importlib
     from phyx_tpu_torch.kernels import nvcc
-    K1, K2 = _kernels()
+    # one module (and one source) may hold several kernels: K3 and K5
+    modules = list({w.__module__: importlib.import_module(w.__module__)
+                    for w in _wrappers().values()}.values())
     t0 = time.perf_counter()
-    reports = nvcc.compile_all([K1.SOURCE, K2.SOURCE])
-    K1.build()
-    K2.build()
+    reports = nvcc.compile_all([m.SOURCE for m in modules])
+    for m in modules:
+        m.build()
     print(f"# build: {time.perf_counter() - t0:.2f} s for "
-          f"{K1.SOURCE.name} and {K2.SOURCE.name}, in parallel", flush=True)
+          f"{', '.join(m.SOURCE.name for m in modules)}, in parallel",
+          flush=True)
     for name, report in reports.items():
         for line in report.splitlines():
             print(f"#   nvcc {name}: {line}")
@@ -136,20 +169,19 @@ def _compare(wrapper, args) -> tuple:
     """Kernel vs plain version on the same CUDA tensors; returns (max abs
     difference, plain version's ms), raising unless every output is
     equal."""
-    K1, _ = _kernels()
+    name = next(k for k, w in _wrappers().items() if w is wrapper)
     got = wrapper(**args)
     _sync()
     t0 = time.perf_counter()
-    ref = K1.solve_contacts_streamed_plain(**args)
+    ref = _plains()[name](**args)
     _sync()
     plain_ms = (time.perf_counter() - t0) * 1e3
     return _equal(f"{wrapper.__name__} vs plain", got, ref), plain_ms
 
 
 def _k1_equals_k2(args) -> float:
-    K1, K2 = _kernels()
-    return _equal("K1 vs K2", K1.solve_contacts_streamed(**args),
-                  K2.solve_contacts_fused(**args))
+    w = _wrappers()
+    return _equal("K1 vs K2", w["K1"](**args), w["K2"](**args))
 
 
 def _small_frame(kind):
@@ -175,7 +207,7 @@ def phase_compare() -> dict:
     """K1 and K2 against the plain version, and K1 against K2, on small
     frames, gates off and on.  Returns the max abs differences."""
     from phyx_tpu_torch.step import solve_inputs, stats_dict
-    K1, K2 = _kernels()
+    w = _wrappers()
     errs = dict(K1=0.0, K2=0.0)
     for kind in ("pile", "bridge", "net"):
         st, cfg, what = _small_frame(kind)
@@ -188,9 +220,8 @@ def phase_compare() -> dict:
         gated = cfg.replace(velocity_rel_tol=1e-2, position_rel_tol=1e-2)
         for c in (cfg, gated):
             args = solve_inputs(st, c)
-            for name, wrapper in (("K1", K1.solve_contacts_streamed),
-                                  ("K2", K2.solve_contacts_fused)):
-                errs[name] = max(errs[name], _compare(wrapper, args)[0])
+            for name in ("K1", "K2"):
+                errs[name] = max(errs[name], _compare(w[name], args)[0])
             _k1_equals_k2(args)
         rows = args["b1"].numel()
         numj = 0 if args["num_joints"] is None else int(args["num_joints"])
@@ -198,6 +229,72 @@ def phase_compare() -> dict:
               f"({stats['num_contacts']} contacts, {numj} joints, {rows} "
               f"slots), gates off and on; max abs diff {errs}", flush=True)
     return errs
+
+
+# small multi-slab frames: 128 bodies a slab (stride 256 less the zero
+# block), windows of 512 rows, 4 + 2 passes
+TILED_SMALL = dict(max_bodies=512, max_pairs=1024, broadphase="sap_grid",
+                   sap_window=48, solver_backend="pallas_tiled",
+                   tile_stride=256, tile_halo=256, velocity_iterations=4,
+                   position_iterations=2)
+
+
+def _tiled_frames():
+    """Small tiled frames on the card: (state, cfg, description, kernels)."""
+    from phyx_tpu_torch import SimConfig, scenes
+    from phyx_tpu_torch.step import rollout
+    cfg = SimConfig(**TILED_SMALL)
+    yield (rollout(scenes.pile(cfg, 300, seed=0).build(), cfg, 30), cfg,
+           "300-box pile over 3 slabs", ("K3", "K5"))
+    sb = scenes.pile(cfg, 200, seed=1)
+    # tests/test_tiled_solver.py's belt: a kinematic static, which keeps
+    # its own embedded row
+    sb.add_box((60.0, 0.25), (3.0, 0.25), static=True, friction=0.9,
+               velocity=(2.0, 0.0))
+    sb.add_box((60.0, 1.0), (0.4, 0.4), friction=0.9)
+    yield (rollout(sb.build(), cfg, 30), cfg,
+           "200-box pile with a moving static", ("K3", "K5"))
+    jcfg = SimConfig(**dict(TILED_SMALL, max_bodies=32, max_joints=32))
+    yield (rollout(scenes.bridge(jcfg, 8, load_boxes=3).build(), jcfg, 50),
+           jcfg, "loaded bridge", ("K5",))
+    yield (rollout(scenes.net(jcfg, 6).build(), jcfg, 20), jcfg, "net",
+           ("K5",))
+
+
+def phase_compare_tiled() -> dict:
+    """K3 and K5 against their plain version on small tiled frames, gates
+    off and on.  Returns, per kernel, the max abs difference and, on the
+    first frame (ungated), its time, the plain version's and the bound."""
+    from phyx_tpu_torch.step import solve_inputs
+    wrappers = _wrappers()
+    out = {name: dict(max_abs_err=0.0) for name in ("K3", "K5")}
+    for st, cfg, what, names in _tiled_frames():
+        gated = cfg.replace(velocity_rel_tol=1e-2, position_rel_tol=1e-2)
+        for name in names:
+            rec = out[name]
+            for c in (cfg, gated):
+                args = solve_inputs(st, c, "tiled2" if name == "K3"
+                                    else "tiled")
+                err, plain_ms = _compare(wrappers[name], args)
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                if "ms" not in rec:
+                    walked = _walked(name, args)
+                    rec.update(ms=_kernel_ms(wrappers[name], args, reps=5),
+                               plain_ms=plain_ms, frame=what,
+                               walked_slots=walked,
+                               **_bound_slabs(args, walked))
+        # K5 is compared last on every frame: its per-slab counts
+        n_slabs = args["n_slabs"]
+        counts = args["slab_counts"].tolist()
+        used = sum(x > 0 for x in counts[:n_slabs])
+        if what.startswith("300") and used < 3:
+            raise AssertionError(f"{what}: contacts in {used} slabs")
+        print(f"# compare: {' and '.join(names)} == plain on a {what} "
+              f"({used} of {n_slabs} slabs with contacts, "
+              f"{sum(counts[n_slabs:])} joint rows), gates off and on; max "
+              f"abs diff { {k: v['max_abs_err'] for k, v in out.items()} }",
+              flush=True)
+    return out
 
 
 def phase_step_parity() -> float:
@@ -215,12 +312,18 @@ def phase_step_parity() -> float:
     jointed = SimConfig(max_bodies=32, max_pairs=128, max_joints=32,
                         broadphase="sap_grid", sap_window=16,
                         solver_backend="pallas")
+    tiled = SimConfig(**dict(TILED_SMALL, max_bodies=256))
+    routed = tiled.replace(tiled_routing=False)
+    tiled_pile = rollout(scenes.pile(tiled, 150, seed=0).build("cpu"),
+                         tiled, 6)
     cases = (
         ("60-box pile", pile, scenes.pile(pile, 60, seed=1).build("cpu")),
         ("20-link chain", jointed,
          scenes.chain(jointed, 20).build("cpu")),
         ("loaded bridge", jointed, rollout(scenes.bridge(
             jointed, 8, load_boxes=3).build("cpu"), jointed, 50)),
+        ("150-box tiled pile (K3)", tiled, tiled_pile),
+        ("150-box tiled pile, routed (K5)", routed, tiled_pile),
     )
     worst = 0.0
     for what, cfg, st in cases:
@@ -286,6 +389,34 @@ def _bound(args) -> dict:
                 visits=(1 + v + p) * (num + numj))
 
 
+def _walked(name, args) -> int:
+    """Slots the tiled kernel ``name`` walks each pass on ``args``."""
+    if name == "K3":
+        return int(args["cum"][-1])
+    n_slabs, j_slots = args["n_slabs"], args["j_slots"]
+    c_slots = args["b12"].numel() // 2 // n_slabs - j_slots
+    counts = args["slab_counts"].tolist()
+    return (sum(min(x, c_slots) for x in counts[:n_slabs])
+            + sum(min(x, j_slots) for x in counts[n_slabs:]))
+
+
+def _bound_slabs(args, walked: int) -> dict:
+    """``_bound`` for the tiled kernels: the embedded table in and out,
+    each walked slot's 14 f32 and 2 int32 read once, the accumulators (all
+    slots) and the residual written once; float operations as contact
+    visits (the slots of joint rows are few beside them)."""
+    npad = args["body_flat"].numel() // 8
+    s = args["b12"].numel() // 2
+    v, p = args["vel_iters"], args["pos_iters"]
+    nbytes = 2 * npad * 32 + walked * 64 + s * 16 + 4
+    ops = walked * (OPS["cw"] + v * OPS["cv"] + p * OPS["cp"])
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, ops=ops, visits=(1 + v + p) * walked)
+
+
 def _stage_ms(st, cfg, frames: int):
     """Device ms of the step's three stages, averaged over ``frames``
     frames, on CUDA events.  Each frame is queued behind a ~100 ms sleep
@@ -306,8 +437,8 @@ def _stage_ms(st, cfg, frames: int):
         ev[1].record()
         bodies, pairs, contacts, jrows, jwarm = contact_stage(st, cfg)
         ev[2].record()
-        bodies, acc_n, acc_t, res, joints = solve_stage(
-            bodies, contacts, st.joints, jrows, jwarm, cfg)
+        bodies, acc_n, acc_t, res, joints, pairs = solve_stage(
+            bodies, contacts, pairs, st.joints, jrows, jwarm, cfg)
         ev[3].record()
         st = finish_stage(st, cfg, bodies, joints, pairs, contacts, acc_n,
                           acc_t, res)
@@ -374,10 +505,10 @@ def _drive(scene: str, boxes: int, settle: int, kernel: str, card: str):
     _sync()
     t2 = time.perf_counter()
     launches = _counts()
-    other = "K1" if kernel == "K2" else "K2"
-    if launches[kernel] != 3 * n or launches[other] != 0:
+    if launches != {k: 3 * n if k == kernel else 0 for k in launches}:
         raise AssertionError(f"{scene}: launches {launches} in {3 * n} "
-                             f"frames, expected {kernel} once a frame")
+                             f"frames, expected {kernel} once a frame and "
+                             "no other kernel")
     per_frame = ((t2 - t1) - (t1 - t0)) / n
     if not per_frame > 0.0:
         raise AssertionError(f"slope timing not positive: t(n)={t1 - t0}, "
@@ -428,7 +559,7 @@ def _kernel_at_frame(st, cfg, wrapper, name) -> dict:
 
 def phase_pile10k(card: str) -> dict:
     """The settled 10k pile through K1, the path of the first slice."""
-    K1, _ = _kernels()
+    w = _wrappers()
     st, cfg, out = _drive("pile", 10_000, 300, "K1", card)
     if out["num_contacts"] <= 0:
         raise AssertionError("no contacts in the 10k pile")
@@ -440,7 +571,7 @@ def phase_pile10k(card: str) -> dict:
                              f"{out['pair_overflow']}, penetration ratio "
                              f"{pen_ratio}")
     st, stages = _stage_ms(st, cfg, frames=3)
-    k = _kernel_at_frame(st, cfg, K1.solve_contacts_streamed, "K1")
+    k = _kernel_at_frame(st, cfg, w["K1"], "K1")
     out.update(metric="steps/s @ 10000-box pile (port, H100 path)",
                penetration_ratio=pen_ratio, stage_device_ms=stages,
                solve_ms_full=k["ms_full_solve"],
@@ -452,7 +583,7 @@ def phase_pile10k(card: str) -> dict:
 def phase_chain(card: str) -> dict:
     """Bench row C: the 1000-link chain, through K2; K1 on the same input
     must equal it."""
-    K1, K2 = _kernels()
+    w = _wrappers()
     st, cfg, out = _drive("chain", 1000, 300, "K2", card)
     # bench.py's joint bar: no overflow, joint residual <= 1e-2
     if out["pair_overflow"] != 0 or not out["residual"] <= 1e-2:
@@ -460,10 +591,10 @@ def phase_chain(card: str) -> dict:
                              f"{out['pair_overflow']}, residual "
                              f"{out['residual']}")
     st, stages = _stage_ms(st, cfg, frames=3)
-    k = _kernel_at_frame(st, cfg, K2.solve_contacts_fused, "K2")
+    k = _kernel_at_frame(st, cfg, w["K2"], "K2")
     args = k["args"]
     k1_err = _k1_equals_k2(args)
-    k1_ms = _kernel_ms(K1.solve_contacts_streamed, args, reps=5)
+    k1_ms = _kernel_ms(w["K1"], args, reps=5)
     print(f"# compare: K1 == K2 on the chain frame, all passes; max abs "
           f"diff {k1_err}", flush=True)
     out.update(metric="steps/s @ 1000-link chain (port, H100 path)",
@@ -478,7 +609,7 @@ def phase_chain(card: str) -> dict:
 
 def phase_pile1k(card: str) -> dict:
     """Bench row B': the 1k pile, settled 400 frames, through K2."""
-    _, K2 = _kernels()
+    w = _wrappers()
     st, cfg, out = _drive("pile", 1000, 400, "K2", card)
     pen_ratio = out["max_penetration"] / 0.5
     if (out["num_contacts"] <= 0 or out["pair_overflow"] != 0
@@ -488,7 +619,7 @@ def phase_pile1k(card: str) -> dict:
                              f"{out['pair_overflow']}, penetration ratio "
                              f"{pen_ratio}")
     st, stages = _stage_ms(st, cfg, frames=3)
-    k = _kernel_at_frame(st, cfg, K2.solve_contacts_fused, "K2")
+    k = _kernel_at_frame(st, cfg, w["K2"], "K2")
     out.update(metric="steps/s @ 1000-box pile (port, H100 path)",
                penetration_ratio=pen_ratio, stage_device_ms=stages,
                solve_ms_full=k["ms_full_solve"],
@@ -498,15 +629,118 @@ def phase_pile1k(card: str) -> dict:
     return dict(k, launches=out["launches"]["K2"])
 
 
+# the reference's 20k slab-major run (BENCH_QUEUE_r5.log:149, TPU v5e): a
+# sanity band for the physics, not a bit target
+REF_20K = dict(num_contacts=83869, num_pairs=58134, penetration_ratio=0.494)
+
+
+def phase_pile20k(card: str) -> dict:
+    """Bench row C': the 20k pile, whose body capacity puts it in the tiled
+    tier, through K3 once a frame; then K3 against its plain version and
+    timed, K1 timed on the same frame compacted, and one frame through K5
+    (``tiled_routing=False``)."""
+    import torch
+    from phyx_tpu_torch.step import solve_inputs, step
+    wrappers = _wrappers()
+    st, cfg, out = _drive("pile", 20_000, 300, "K3", card)
+    pen_ratio = out["max_penetration"] / 0.5
+    ovf = {k: out[k] for k in ("pair_overflow", "ovf_window", "ovf_slots",
+                               "ovf_drop", "ovf_band", "ovf_slab")}
+    if (out["num_contacts"] <= 0 or any(ovf.values())
+            or not pen_ratio <= 0.6):
+        raise AssertionError(f"20k pile bar missed: contacts "
+                             f"{out['num_contacts']}, overflow {ovf}, "
+                             f"penetration ratio {pen_ratio}")
+    st, stages = _stage_ms(st, cfg, frames=3)
+
+    # K3 against the plain version at the frame's shapes: the warm pass and
+    # one velocity pass (the plain version launches one op per scalar
+    # operation)
+    args = solve_inputs(st, cfg)
+    if "cum" not in args:
+        raise AssertionError("the 20k pile did not take the slab-major path")
+    walked = _walked("K3", args)
+    short = dict(args, vel_iters=1, pos_iters=0)
+    err, plain_ms = _compare(wrappers["K3"], short)
+    print(f"# compare: K3 == plain at the 20k frame ({walked} slots in "
+          f"{args['n_slabs']} slabs, {out['num_contacts']} live contacts), "
+          f"warm + 1 velocity pass; max abs diff {err}", flush=True)
+    ms_short = _kernel_ms(wrappers["K3"], short, reps=5)
+    ms_full = _kernel_ms(wrappers["K3"], args, reps=3)
+    full = _bound_slabs(args, walked)
+
+    # K1 on the same frame, live rows compacted first (not asserted on)
+    rows = solve_inputs(st, cfg, "rows")
+    k1_ms = _kernel_ms(wrappers["K1"], rows, reps=3)
+    k1_visits = _bound(rows)["visits"]
+
+    # one frame through K5, the reference's round-4 path, beside K3's; no
+    # step of either path may wait for the device
+    routed = cfg.replace(tiled_routing=False)
+    _sync()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        via_k3 = step(st, cfg)
+        _reset_counts()
+        via_k5 = step(st, routed)
+        k5_launches = _counts()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _sync()
+    if k5_launches != dict(K1=0, K2=0, K3=0, K5=1):
+        raise AssertionError(f"K5 frame launches {k5_launches}")
+    k5_diff = (via_k3.bodies.pos - via_k5.bodies.pos).abs().max().item()
+    if not (torch.isfinite(via_k5.bodies.pos).all().item()
+            and k5_diff <= 5e-3):
+        raise AssertionError(f"K5 frame off the K3 frame by {k5_diff}")
+    print(f"# K5 frame: positions within {k5_diff} of the K3 frame (bar "
+          "5e-3), neither frame waiting for the device", flush=True)
+
+    # K5 against the plain version at that frame's shapes, as K3 above
+    k5_args = solve_inputs(st, routed)
+    k5_walked = _walked("K5", k5_args)
+    k5_short = dict(k5_args, vel_iters=1, pos_iters=0)
+    k5_err, k5_plain_ms = _compare(wrappers["K5"], k5_short)
+    print(f"# compare: K5 == plain at the 20k frame's routed rows "
+          f"({k5_walked} live slots in {k5_args['n_slabs']} slab budgets of "
+          f"{k5_args['b12'].numel() // 2 // k5_args['n_slabs']} slots), "
+          f"warm + 1 velocity pass; max abs diff {k5_err}", flush=True)
+    k5_ms_short = _kernel_ms(wrappers["K5"], k5_short, reps=5)
+    k5_ms = _kernel_ms(wrappers["K5"], k5_args, reps=3)
+    k5_full = _bound_slabs(k5_args, k5_walked)
+
+    out.update(metric="steps/s @ 20000-box pile (port, H100 path)",
+               penetration_ratio=pen_ratio, stage_device_ms=stages,
+               solve_ms_full=ms_full,
+               solve_share_of_frame=ms_full / out["frame_ms"],
+               k3_walked_slots=walked, k3_ns_per_visit=ms_full * 1e6
+               / full["visits"], k1_ms_full_solve_same_frame=k1_ms,
+               k1_ns_per_visit=k1_ms * 1e6 / k1_visits,
+               k5_ms_full_solve=k5_ms, k5_frame_max_pos_diff=k5_diff,
+               reference_fingerprint=REF_20K)
+    print(json.dumps(out), flush=True)
+    return dict(
+        k3=dict(launches=out["launches"]["K3"], max_abs_err=err,
+                plain_ms=plain_ms, ms=ms_short, **_bound_slabs(short, walked),
+                ms_full_solve=ms_full,
+                bound_ms_full_solve=full["bound_ms"],
+                ns_per_visit=ms_full * 1e6 / full["visits"],
+                walked_slots=walked, contacts=out["num_contacts"], joints=0),
+        k5=dict(launches=k5_launches["K5"], max_abs_err=k5_err,
+                plain_ms=k5_plain_ms, ms=k5_ms_short,
+                **_bound_slabs(k5_short, k5_walked), ms_full_solve=k5_ms,
+                bound_ms_full_solve=k5_full["bound_ms"],
+                ns_per_visit=k5_ms * 1e6 / k5_full["visits"],
+                walked_slots=k5_walked))
+
+
 def _row(name, source, replaces, k, timed, **extra) -> dict:
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by")
+            "bound_by", "ms_full_solve", "bound_ms_full_solve",
+            "ns_per_visit")
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 **{key: k[key] for key in keys}, library_ms=None,
-                timed=timed, ms_full_solve=k["ms_full_solve"],
-                bound_ms_full_solve=k["bound_ms_full_solve"],
-                ns_per_visit=k["ns_per_visit"], contacts=k["contacts"],
-                joints=k["joints"], **extra)
+                timed=timed, **extra)
 
 
 def main() -> int:
@@ -517,32 +751,55 @@ def main() -> int:
     card = phase_device()
     phase_build()
     small = phase_compare()
+    tiled = phase_compare_tiled()
     phase_step_parity()
     if quick:
         return 0
     pile = phase_pile10k(card)
     chain = phase_chain(card)
     pile1k = phase_pile1k(card)
+    pile20k = phase_pile20k(card)
     passes = "warm + 1 velocity + 1 displacement pass"
+    k3, k5 = pile20k["k3"], pile20k["k5"]
+    # the tiled kernels on the small frames (all passes, ungated)
+    small_tiled = {name: {f"{key}_small_frames": rec[key] for key in
+                          ("max_abs_err", "ms", "plain_ms", "bound_ms")}
+                   for name, rec in tiled.items()}
     kernels = [
         _row("contact_solver_streamed (K1)",
              "phyx_tpu_torch/csrc/contact_solver_streamed.cu",
              "phyx_tpu/kernels/contact_solver_streamed.py:58", pile,
              f"{passes} at the 10k pile frame",
              max_abs_err_small_frames=small["K1"],
-             ms_full_solve_chain_frame=chain["k1_ms_full_solve"]),
+             ms_full_solve_chain_frame=chain["k1_ms_full_solve"],
+             contacts=pile["contacts"], joints=pile["joints"]),
         _row("contact_solver (K2)", "phyx_tpu_torch/csrc/contact_solver.cu",
              "phyx_tpu/kernels/contact_solver.py:50", chain,
              f"{passes} at the 1000-link chain frame",
              max_abs_err_small_frames=small["K2"],
+             contacts=chain["contacts"], joints=chain["joints"],
              launches_pile1k=pile1k["launches"], ms_pile1k=pile1k["ms"],
              plain_ms_pile1k=pile1k["plain_ms"],
              bound_ms_pile1k=pile1k["bound_ms"],
              ms_full_solve_pile1k=pile1k["ms_full_solve"],
              ns_per_visit_pile1k=pile1k["ns_per_visit"]),
+        _row("contact_solver_tiled2 (K3)",
+             "phyx_tpu_torch/csrc/contact_solver_tiled.cu",
+             "phyx_tpu/kernels/contact_solver_tiled2.py:68", k3,
+             "warm + 1 velocity pass at the 20k pile frame",
+             **small_tiled["K3"], walked_slots=k3["walked_slots"],
+             contacts=k3["contacts"]),
+        _row("contact_solver_tiled (K5)",
+             "phyx_tpu_torch/csrc/contact_solver_tiled.cu",
+             "phyx_tpu/kernels/contact_solver_tiled.py:57", k5,
+             "warm + 1 velocity pass at the 20k pile frame's routed rows",
+             **small_tiled["K5"], walked_slots=k5["walked_slots"],
+             small_frame=tiled["K5"]["frame"]),
     ]
     for k in kernels:
         k["max_abs_err"] = max(k["max_abs_err"], k["max_abs_err_small_frames"])
+        if k["launches"] <= 0:
+            raise AssertionError(f"{k['name']} never launched on its path")
         if not all(math.isfinite(k[key]) for key in ("ms", "plain_ms",
                                                      "bound_ms")):
             raise AssertionError(f"non-finite time in {k['name']}")

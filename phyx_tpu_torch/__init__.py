@@ -4,15 +4,17 @@ The JAX package ``phyx_tpu`` is the reference; this package mirrors its
 module names, record field names and dtypes so each piece has a
 counterpart, and never imports jax or ``phyx_tpu``.  Plain stages are torch
 operations; the serial solve is CUDA written for Hopper (``csrc/``, built
-at first use), in a fused form (state in shared memory) and a streamed
-form (state in device memory).
+at first use), in a fused form (state in shared memory), a streamed form
+(state in device memory) and two slab-ordered tiled forms (the x-rank
+embedded body table in device memory).
 
 Ported so far: ``SimConfig``, the state records, the scenes (piles, stack,
 pyramid, avalanche, and the jointed chain, bridge and net), the grid and
-all-pairs broadphases, jointed-pair exclusion, narrowphase, the contact
-cache, solver and joint prepare, both solve kernels, ``step`` and
-``rollout`` — for ``solver_backend="pallas"``.  Entry points put state on
-the card unless the caller names another device.
+all-pairs broadphases with the grid's slab-major finalize, jointed-pair
+exclusion, narrowphase, the contact cache, solver and joint prepare, the
+four solve kernels, ``step`` and ``rollout`` — for
+``solver_backend="pallas"`` and ``"pallas_tiled"``.  Entry points put
+state on the card unless the caller names another device.
 
     from phyx_tpu_torch import SimConfig, scenes
     from phyx_tpu_torch.step import step, rollout

@@ -10,13 +10,19 @@
 
 Both emit pairs sorted lexicographically by ``(pi, pj)`` with EMPTY slots
 last, and count what a budget truncated (``ovf_*``) instead of dropping it
-silently.  Nothing here reads a value back to the host.
+silently.  Where the configuration runs the tiled solve (``tiling``), the
+grid instead finalizes slab-major: pairs ordered (slab, pi, pj), with the
+routing the tiled solve reads attached (``TiledRouting``).  Nothing here
+reads a value back to the host.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from phyx_tpu_torch import tiling
 from phyx_tpu_torch.config import SimConfig
 from phyx_tpu_torch.types import EMPTY, Bodies, _record
 
@@ -24,10 +30,28 @@ _EMPTY_KEY = (EMPTY << 32) | EMPTY   # int64 pair key of an EMPTY row
 
 
 @_record
+class TiledRouting:
+    """What the slab-major solve (``solver.solve_pallas_tiled2``) reads
+    beside the pair buffer: the body x-rank order and the body columns in
+    that order (for the embedded table), each pair's endpoint rows local to
+    its slab's window (clamped into it; not pre-scaled, unlike the
+    reference's x8 rows), and ``pair_cum[s]``, the live pairs of slabs
+    below s (``pair_cum[n_slabs]`` = all live pairs)."""
+
+    order: torch.Tensor        # (N,) int32 body id at rank r
+    ranked_cols: torch.Tensor  # (N, 5) f32 [vx, vy, w, inv_mass, inv_inertia]
+    lb1: torch.Tensor          # (P,) int32 window-local row of pi
+    lb2: torch.Tensor          # (P,) int32 window-local row of pj
+    pair_cum: torch.Tensor     # (n_slabs + 1,) int32
+
+
+@_record
 class Pairs:
-    """Fixed-capacity candidate pair buffer: ``pi < pj`` body ids,
-    lex-sorted, free slots at EMPTY.  ``overflow`` is the sum of the
-    per-cause counters."""
+    """Fixed-capacity candidate pair buffer: ``pi < pj`` body ids, free
+    slots at EMPTY and last.  Live pairs are lex-sorted by (pi, pj), except
+    on the slab-major path, where they are ordered (slab, pi, pj) and
+    ``routing`` is set.  ``overflow`` is the sum of the per-cause
+    counters."""
 
     pi: torch.Tensor          # (P,) int32
     pj: torch.Tensor          # (P,) int32
@@ -38,7 +62,10 @@ class Pairs:
     ovf_slots: torch.Tensor   # () int32 per-body hit-slot spills
     ovf_drop: torch.Tensor    # () int32 candidates past max_pairs
     ovf_band: torch.Tensor    # () int32 banded-sweep crossers (0 here)
-    ovf_slab: torch.Tensor    # () int32 tiled-solver slab clamps (0 here)
+    # tiled-solve slab clamps: counted here on the slab-major path, added
+    # by step.solve_stage on the routed tiled path, else 0
+    ovf_slab: torch.Tensor    # () int32
+    routing: Optional[TiledRouting] = None   # slab-major path only
 
 
 def compute_aabbs(bodies: Bodies):
@@ -159,7 +186,8 @@ def _long_object_lane(bodies: Bodies, lo, hi, dynamic, k_long: int):
     return d_pi, d_pj, d_valid, is_long
 
 
-def broadphase_sap_grid(bodies: Bodies, cfg: SimConfig) -> Pairs:
+def broadphase_sap_grid(bodies: Bodies, cfg: SimConfig,
+                        emit_routing: Optional[bool] = None) -> Pairs:
     """Windowed sweep & prune with per-body hit slots.
 
     Offset d (0 <= d < w) tests every body against its (d+1)-th forward
@@ -169,8 +197,17 @@ def broadphase_sap_grid(bodies: Bodies, cfg: SimConfig) -> Pairs:
     sorted columns, a cumulative count along d gives each hit its slot,
     and the hits below ``sap_hits`` scatter into place — the same buffer.
     Hits beyond the slots count into ``ovf_slots``; windows still x-open
-    at offset w count into ``ovf_window``."""
+    at offset w count into ``ovf_window``.
+
+    ``emit_routing``: finalize slab-major (``_slab_major``); None emits
+    whenever ``cfg.tiled_routing`` is set and the configuration resolves
+    to the tiled solve."""
     n = bodies.capacity
+    n_slabs = tiling.slab_dims(cfg, n)[4]
+    if emit_routing is None:
+        emit_routing = (cfg.tiled_routing and tiling.resolve_tiled(
+            cfg, n, 2 * cfg.max_pairs))
+    emit_routing = emit_routing and tiling.routing_bits_ok(n, n_slabs)
     dev = bodies.pos.device
     w = min(cfg.sap_window, n - 1)
     H = min(cfg.sap_hits, w)
@@ -226,13 +263,69 @@ def broadphase_sap_grid(bodies: Bodies, cfg: SimConfig) -> Pairs:
     pi = torch.cat([torch.minimum(src_id, tgt).reshape(-1), d_pi.reshape(-1)])
     pj = torch.cat([torch.maximum(src_id, tgt).reshape(-1), d_pj.reshape(-1)])
     vv = torch.cat([(tgt >= 0).reshape(-1), d_valid.reshape(-1)])
-    return _finish(pi, pj, vv, cfg.max_pairs, ovf_window=missed,
-                   ovf_slots=dropped)
+    pairs = _finish(pi, pj, vv, cfg.max_pairs, ovf_window=missed,
+                    ovf_slots=dropped)
+    return _slab_major(pairs, bodies, lo, cfg) if emit_routing else pairs
 
 
-def broadphase(bodies: Bodies, cfg: SimConfig) -> Pairs:
-    """Dispatch on ``cfg.broadphase``.  The sweep kernels of the reference
-    are not ported yet (ROADMAP K4, K6, K7), nor banded sweep keys (M12)."""
+def _routing_rank_sort(bodies: Bodies, lo: torch.Tensor):
+    """The tiled solve's body ranking: a stable sort of
+    where(active, min x, inf).  It ranks every active body, the ``k_long``
+    widest included (the sweep parks those at +inf, the embedding keeps
+    their true x-rank).  Returns (order (N,) int32, ranked_cols (N, 5):
+    [vx, vy, w, inv_mass, inv_inertia] in rank order)."""
+    keys = torch.where(bodies.active, lo[:, 0],
+                       torch.full_like(lo[:, 0], float("inf")))
+    order = torch.sort(keys, stable=True).indices
+    cols = torch.stack([bodies.vel[:, 0], bodies.vel[:, 1], bodies.angvel,
+                        bodies.inv_mass, bodies.inv_inertia], dim=1)
+    return order.to(torch.int32), cols[order]
+
+
+def _slab_major(pairs: Pairs, bodies: Bodies, lo: torch.Tensor,
+                cfg: SimConfig) -> Pairs:
+    """The reference's slab-major finalize (``_finish_slab_major``) on the
+    lex-compacted buffer ``_finish`` made (stage 1: on overflow the highest
+    (pi, pj) pairs dropped).  Stage 2 routes the survivors
+    (``tiling.route_pairs``, clamps counted into ``ovf_slab``) and orders
+    them (slab, pi, pj): the buffer is lex-sorted already, so a stable sort
+    on the slab key, EMPTY last, gives that order."""
+    n = bodies.capacity
+    K, _, _, _, n_slabs, _ = tiling.slab_dims(cfg, n)
+    order, ranked_cols = _routing_rank_sort(bodies, lo)
+    rank = torch.empty_like(order).index_copy_(
+        0, order.to(torch.int64),
+        torch.arange(n, dtype=torch.int32, device=order.device))
+    pz = tiling.pz_table(rank, tiling.zero_safe_mask(bodies), cfg, n)
+    live = pairs.valid
+    lb1, lb2, slab, in_win = tiling.route_pairs(
+        pz, torch.clamp(pairs.pi, max=n - 1), torch.clamp(pairs.pj, max=n - 1),
+        cfg, n)
+    ovf_slab = (live & ~in_win).sum(dtype=torch.int32)
+    # window-local rows; dead slots carry zeros
+    lb1 = torch.where(live, lb1 - slab * K, 0).to(torch.int32)
+    lb2 = torch.where(live, lb2 - slab * K, 0).to(torch.int32)
+    skey = torch.where(live, slab, n_slabs)
+    skey, perm = torch.sort(skey, stable=True)
+    pair_cum = torch.searchsorted(
+        skey, torch.arange(n_slabs + 1, dtype=skey.dtype,
+                           device=skey.device)).to(torch.int32)
+    pi = pairs.pi[perm]
+    return pairs.replace(
+        pi=pi, pj=pairs.pj[perm], valid=pi != EMPTY,
+        overflow=pairs.overflow + ovf_slab, ovf_slab=ovf_slab,
+        routing=TiledRouting(order=order, ranked_cols=ranked_cols,
+                             lb1=lb1[perm], lb2=lb2[perm],
+                             pair_cum=pair_cum))
+
+
+def broadphase(bodies: Bodies, cfg: SimConfig,
+               tiled_routing: Optional[bool] = None) -> Pairs:
+    """Dispatch on ``cfg.broadphase``.  ``tiled_routing``: the grid's
+    slab-major finalize, None = whenever the configuration runs the tiled
+    solve, False = never (jointed scenes: the jointed-pair exclusion
+    re-sorts the buffer).  The sweep kernels of the reference are not
+    ported yet (ROADMAP K4, K6, K7), nor banded sweep keys (M12)."""
     if cfg.sweep_band_h > 0.0:
         raise NotImplementedError(
             "banded sweep keys (sweep_band_h > 0) are not ported yet: "
@@ -240,7 +333,7 @@ def broadphase(bodies: Bodies, cfg: SimConfig) -> Pairs:
     if cfg.broadphase == "n2":
         return broadphase_n2(bodies, cfg)
     if cfg.broadphase in ("sap", "sap_window", "sap_grid"):
-        return broadphase_sap_grid(bodies, cfg)
+        return broadphase_sap_grid(bodies, cfg, emit_routing=tiled_routing)
     raise NotImplementedError(
         f"broadphase={cfg.broadphase!r} runs a sweep kernel that is not "
         "ported yet: ROADMAP K4 (sap_tiled), K6/K7 (sap_kernel)")

@@ -61,8 +61,10 @@ def build_cache(contacts: Contacts, pairs: Pairs,
                 accum_n: torch.Tensor, accum_t: torch.Tensor
                 ) -> ContactCache:
     """Store this frame's accumulated impulses keyed by (pair, feature id):
-    the pair buffer is lex-sorted with EMPTY slots last, so the new cache
-    is the positional regrouping of the flat contact arrays."""
+    the new cache is the positional regrouping of the flat contact arrays,
+    in the pair buffer's order (lex-sorted, or (slab, pi, pj) on the
+    slab-major path) with EMPTY slots last; ``lex_join`` sorts it when it
+    is read."""
     P = pairs.pi.shape[0]
     valid = contacts.valid.reshape(P, 2)
     return ContactCache(

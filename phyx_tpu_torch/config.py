@@ -97,7 +97,7 @@ class SimConfig:
     # Slab-major tiled pipeline (round 5): the tiled broadphase finalizes
     # pairs keyed (slab, pi, pj) with routed endpoints riding the sort,
     # and the solver runs the slab-segmented kernel with zero routing
-    # sorts (kernels/contact_solver_tiled2.py).  False = round-4 layout
+    # sorts (K3, kernels/contact_solver_tiled.py).  False = round-4 layout
     # (per-slab block budgets + solve-side routing sorts) — kept for
     # A/B fencing and for jointed scenes (which force it off anyway).
     tiled_routing: bool = True

@@ -16,7 +16,9 @@ state in shared memory.  Built with ``nvcc`` at first use
   the same visits in the same order as scalar float32 torch operations.
   Each visit's arithmetic is written in the kernels' order, and they are
   built with ``-fmad=false``, so all three agree to the bit on the same
-  inputs.
+  inputs.  Its walk, ``plain_walk``, also serves the plain versions of
+  the tiled kernels (``kernels/contact_solver_tiled.py``), which visit in
+  another order.
 
 Layout (flat, as in the reference): body rows ``(N*8,)`` f32 of
 ``[vx, vy, w, inv_mass, inv_inertia, dvx, dvy, dw]``; plain body ids
@@ -163,26 +165,48 @@ def solve_contacts_streamed_plain(
     counts, ids and joint kinds back to the host, so it is for tests and
     for comparison with the kernels, never for the main path on the
     card."""
-    device = body_flat.device
     n = body_flat.numel() // 8
     r = b1.numel()
     c_cap = r if c_cap is None else int(c_cap)
-    if tols is None:
-        tols = torch.zeros((2,), dtype=torch.float32, device=device)
-    vtol, ptol = tols.unbind()
     num = min(max(int(num_contacts), 0), c_cap)
     numj = 0 if num_joints is None else min(max(int(num_joints), 0),
                                             r - c_cap)
     slots = list(range(num)) + list(range(c_cap, c_cap + numj))
     ids1 = [min(max(i, 0), n - 1) for i in b1[slots].tolist()]
     ids2 = [min(max(j, 0), n - 1) for j in b2[slots].tolist()]
-    rows12 = con_flat.reshape(r, 12)[slots]
+    visits = [(k, i, j, q >= num)
+              for q, (k, i, j) in enumerate(zip(slots, ids1, ids2))]
+    return plain_walk(body_flat.reshape(n, 8), con_flat.reshape(r, 12),
+                      warm_flat.reshape(r, 2), visits, vel_iters, pos_iters,
+                      tols)
+
+
+def plain_walk(table, con_rows, warm_rows, visits, vel_iters: int,
+               pos_iters: int, tols=None):
+    """The serial solve every kernel of this package runs, as scalar
+    float32 torch operations: one warm pass, ``vel_iters`` velocity passes
+    and ``pos_iters`` displacement passes, each walking ``visits`` in
+    order.  A visit is (slot, body row i, body row j, joint row?): it reads
+    ``con_rows[slot]`` (12 columns) and ``warm_rows[slot]`` (2) and
+    updates rows i and j of ``table`` ((rows, 8)).  Gates as in the
+    module docstring.  Returns (table' flat, acc (slots*4,) zero where not
+    visited, residual (1,))."""
+    device = table.device
+    r = con_rows.shape[0]
+    if tols is None:
+        tols = torch.zeros((2,), dtype=torch.float32, device=device)
+    vtol, ptol = tols.unbind()
+    slots = [v[0] for v in visits]
+    rows12 = con_rows[slots]
     con = [rows12[k].unbind() for k in range(len(slots))]
-    warm = [w.unbind() for w in warm_flat.reshape(r, 2)[slots]]
-    # joint kind per visited joint row: 1.0 revolute, otherwise distance
-    rev = (rows12[num:, 11] == 1.0).tolist()
-    table = body_flat.reshape(n, 8)
-    rows = {}       # body id -> list of 8 scalar tensors (its live row)
+    warm = [w.unbind() for w in warm_rows[slots]]
+    # joint kind per visit: True revolute, False distance, None a contact
+    kinds = rows12[:, 11].tolist()
+    rev = [(kinds[k] == 1.0) if v[3] else None
+           for k, v in enumerate(visits)]
+    ids1 = [v[1] for v in visits]
+    ids2 = [v[2] for v in visits]
+    rows = {}       # table row -> list of 8 scalar tensors (its live row)
 
     def row(i):
         if i not in rows:
@@ -191,13 +215,12 @@ def solve_contacts_streamed_plain(
 
     zero = torch.zeros((), dtype=torch.float32, device=device)
     acc = [[zero] * 4 for _ in slots]
-    contact_visits = range(num)
-    joint_visits = range(num, num + numj)
+    order = range(len(slots))
 
     def arms(k):
         """(r1x, r1y, r2x, r2y) of joint visit k."""
         c = con[k]
-        return c[0:4] if rev[k - num] else c[2:6]
+        return c[0:4] if rev[k] else c[2:6]
 
     def joint_apply(bi, bj, g, px, py, off):
         # every body value read afresh, as the kernels read it
@@ -210,8 +233,7 @@ def solve_contacts_streamed_plain(
         bj[off + 1] = bj[off + 1] + py * im2
         bj[off + 2] = bj[off + 2] + ii2 * (r2x * py - r2y * px)
 
-    # warm pass: contacts, then joints
-    for k in contact_visits:
+    def contact_warm(k):
         nx, ny, r1x, r1y, r2x, r2y = con[k][:6]
         wn, wt = warm[k]
         px = nx * wn - ny * wt
@@ -225,16 +247,131 @@ def solve_contacts_streamed_plain(
         bj[1] = bj[1] + py * im2
         bj[2] = bj[2] + ii2 * (r2x * py - r2y * px)
         acc[k] = [wn, wt, zero, zero]
-    for k in joint_visits:
+
+    def joint_warm(k):
         c = con[k]
         wx, wy = warm[k]
-        is_rev = rev[k - num]
-        if is_rev:
+        if rev[k]:
             px, py = wx, wy
         else:
             px, py = c[0] * wx, c[1] * wx
         joint_apply(row(ids1[k]), row(ids2[k]), arms(k), px, py, 0)
-        acc[k] = [wx, wy if is_rev else zero, zero, zero]
+        acc[k] = [wx, wy if rev[k] else zero, zero, zero]
+
+    def contact_vel(k):
+        """Returns max(|dn|, |dt|)."""
+        nx, ny, r1x, r1y, r2x, r2y, mn, mt, fr, dstv, _, ctn = con[k]
+        bi, bj = row(ids1[k]), row(ids2[k])
+        im1, ii1, im2, ii2 = bi[3], bi[4], bj[3], bj[4]
+        vx1, vy1, w1 = bi[0], bi[1], bi[2]
+        vx2, vy2, w2 = bj[0], bj[1], bj[2]
+        dvx = vx2 - w2 * r2y - vx1 + w1 * r1y
+        dvy = vy2 + w2 * r2x - vy1 - w1 * r1x
+        vn = nx * dvx + ny * dvy
+        vt = -ny * dvx + nx * dvy
+        d = (dstv - vn) * mn
+        a = acc[k][0]
+        na = torch.maximum(a + d, zero)
+        dn = na - a
+        acc[k][0] = na
+        d = -(vt + ctn * dn) * mt
+        a = acc[k][1]
+        mf = fr * na
+        ta = torch.minimum(torch.maximum(a + d, -mf), mf)
+        dt = ta - a
+        acc[k][1] = ta
+        px = nx * dn - ny * dt
+        py = ny * dn + nx * dt
+        bi[0] = vx1 - px * im1
+        bi[1] = vy1 - py * im1
+        bi[2] = w1 - ii1 * (r1x * py - r1y * px)
+        bj[0] = vx2 + px * im2
+        bj[1] = vy2 + py * im2
+        bj[2] = w2 + ii2 * (r2x * py - r2y * px)
+        return torch.maximum(torch.abs(dn), torch.abs(dt))
+
+    def joint_vel(k):
+        """Returns max(|px|, |py|)."""
+        c = con[k]
+        g = arms(k)
+        r1x, r1y, r2x, r2y = g
+        bi, bj = row(ids1[k]), row(ids2[k])
+        vx1, vy1, w1 = bi[0], bi[1], bi[2]
+        vx2, vy2, w2 = bj[0], bj[1], bj[2]
+        dvx = vx2 - w2 * r2y - vx1 + w1 * r1y
+        dvy = vy2 + w2 * r2x - vy1 - w1 * r1x
+        a = acc[k]
+        if rev[k]:          # impulse -(M dv)
+            px = -(c[4] * dvx + c[5] * dvy)
+            py = -(c[5] * dvx + c[6] * dvy)
+            a[0] = a[0] + px
+            a[1] = a[1] + py
+        else:               # impulse -m (n.dv) n
+            nx, ny = c[0], c[1]
+            dd = -c[6] * (nx * dvx + ny * dvy)
+            px = nx * dd
+            py = ny * dd
+            a[0] = a[0] + dd
+            a[1] = a[1] + 0.0
+        joint_apply(bi, bj, g, px, py, 0)
+        return torch.maximum(torch.abs(px), torch.abs(py))
+
+    def contact_pos(k):
+        """Returns |d|."""
+        nx, ny, r1x, r1y, r2x, r2y, mn = con[k][:7]
+        ddv = con[k][10]
+        bi, bj = row(ids1[k]), row(ids2[k])
+        im1, ii1, im2, ii2 = bi[3], bi[4], bj[3], bj[4]
+        px1, py1, q1 = bi[5], bi[6], bi[7]
+        px2, py2, q2 = bj[5], bj[6], bj[7]
+        dvx = px2 - q2 * r2y - px1 + q1 * r1y
+        dvy = py2 + q2 * r2x - py1 - q1 * r1x
+        vn = nx * dvx + ny * dvy
+        d = (ddv - vn) * mn
+        a = acc[k][2]
+        na = torch.maximum(a + d, zero)
+        d = na - a
+        acc[k][2] = na
+        ix = nx * d
+        iy = ny * d
+        bi[5] = px1 - ix * im1
+        bi[6] = py1 - iy * im1
+        bi[7] = q1 - ii1 * (r1x * iy - r1y * ix)
+        bj[5] = px2 + ix * im2
+        bj[6] = py2 + iy * im2
+        bj[7] = q2 + ii2 * (r2x * iy - r2y * ix)
+        return torch.abs(d)
+
+    def joint_pos(k):
+        """Returns max(|px|, |py|)."""
+        c = con[k]
+        g = arms(k)
+        r1x, r1y, r2x, r2y = g
+        bi, bj = row(ids1[k]), row(ids2[k])
+        px1, py1, q1 = bi[5], bi[6], bi[7]
+        px2, py2, q2 = bj[5], bj[6], bj[7]
+        dvx = px2 - q2 * r2y - px1 + q1 * r1y
+        dvy = py2 + q2 * r2x - py1 - q1 * r1x
+        a = acc[k]
+        if rev[k]:          # toward the target (dstx, dsty)
+            ex = c[7] - dvx
+            ey = c[8] - dvy
+            px = c[4] * ex + c[5] * ey
+            py = c[5] * ex + c[6] * ey
+            a[2] = a[2] + px
+            a[3] = a[3] + py
+        else:               # toward the scalar target along n
+            nx, ny = c[0], c[1]
+            dd = c[6] * (c[7] - (nx * dvx + ny * dvy))
+            px = nx * dd
+            py = ny * dd
+            a[2] = a[2] + dd
+            a[3] = a[3] + 0.0
+        joint_apply(bi, bj, g, px, py, 5)
+        return torch.maximum(torch.abs(px), torch.abs(py))
+
+    for k in order:
+        (contact_warm if rev[k] is None else joint_warm)(k)
 
     res = zero
     converged = False
@@ -242,62 +379,9 @@ def solve_contacts_streamed_plain(
         if converged:
             continue
         res = zero
-        for k in contact_visits:
-            nx, ny, r1x, r1y, r2x, r2y, mn, mt, fr, dstv, _, ctn = con[k]
-            bi, bj = row(ids1[k]), row(ids2[k])
-            im1, ii1, im2, ii2 = bi[3], bi[4], bj[3], bj[4]
-            vx1, vy1, w1 = bi[0], bi[1], bi[2]
-            vx2, vy2, w2 = bj[0], bj[1], bj[2]
-            dvx = vx2 - w2 * r2y - vx1 + w1 * r1y
-            dvy = vy2 + w2 * r2x - vy1 - w1 * r1x
-            vn = nx * dvx + ny * dvy
-            vt = -ny * dvx + nx * dvy
-            d = (dstv - vn) * mn
-            a = acc[k][0]
-            na = torch.maximum(a + d, zero)
-            dn = na - a
-            acc[k][0] = na
-            d = -(vt + ctn * dn) * mt
-            a = acc[k][1]
-            mf = fr * na
-            ta = torch.minimum(torch.maximum(a + d, -mf), mf)
-            dt = ta - a
-            acc[k][1] = ta
-            px = nx * dn - ny * dt
-            py = ny * dn + nx * dt
-            bi[0] = vx1 - px * im1
-            bi[1] = vy1 - py * im1
-            bi[2] = w1 - ii1 * (r1x * py - r1y * px)
-            bj[0] = vx2 + px * im2
-            bj[1] = vy2 + py * im2
-            bj[2] = w2 + ii2 * (r2x * py - r2y * px)
-            res = torch.maximum(res, torch.maximum(torch.abs(dn),
-                                                   torch.abs(dt)))
-        for k in joint_visits:
-            c = con[k]
-            g = arms(k)
-            r1x, r1y, r2x, r2y = g
-            bi, bj = row(ids1[k]), row(ids2[k])
-            vx1, vy1, w1 = bi[0], bi[1], bi[2]
-            vx2, vy2, w2 = bj[0], bj[1], bj[2]
-            dvx = vx2 - w2 * r2y - vx1 + w1 * r1y
-            dvy = vy2 + w2 * r2x - vy1 - w1 * r1x
-            a = acc[k]
-            if rev[k - num]:    # impulse -(M dv)
-                px = -(c[4] * dvx + c[5] * dvy)
-                py = -(c[5] * dvx + c[6] * dvy)
-                a[0] = a[0] + px
-                a[1] = a[1] + py
-            else:               # impulse -m (n.dv) n
-                nx, ny = c[0], c[1]
-                dd = -c[6] * (nx * dvx + ny * dvy)
-                px = nx * dd
-                py = ny * dd
-                a[0] = a[0] + dd
-                a[1] = a[1] + 0.0
-            joint_apply(bi, bj, g, px, py, 0)
-            res = torch.maximum(res, torch.maximum(torch.abs(px),
-                                                   torch.abs(py)))
+        for k in order:
+            res = torch.maximum(
+                res, (contact_vel if rev[k] is None else joint_vel)(k))
         converged = bool(res < vtol)
 
     converged = False
@@ -305,64 +389,15 @@ def solve_contacts_streamed_plain(
         if converged:
             continue
         pres = zero
-        for k in contact_visits:
-            nx, ny, r1x, r1y, r2x, r2y, mn = con[k][:7]
-            ddv = con[k][10]
-            bi, bj = row(ids1[k]), row(ids2[k])
-            im1, ii1, im2, ii2 = bi[3], bi[4], bj[3], bj[4]
-            px1, py1, q1 = bi[5], bi[6], bi[7]
-            px2, py2, q2 = bj[5], bj[6], bj[7]
-            dvx = px2 - q2 * r2y - px1 + q1 * r1y
-            dvy = py2 + q2 * r2x - py1 - q1 * r1x
-            vn = nx * dvx + ny * dvy
-            d = (ddv - vn) * mn
-            a = acc[k][2]
-            na = torch.maximum(a + d, zero)
-            d = na - a
-            acc[k][2] = na
-            ix = nx * d
-            iy = ny * d
-            bi[5] = px1 - ix * im1
-            bi[6] = py1 - iy * im1
-            bi[7] = q1 - ii1 * (r1x * iy - r1y * ix)
-            bj[5] = px2 + ix * im2
-            bj[6] = py2 + iy * im2
-            bj[7] = q2 + ii2 * (r2x * iy - r2y * ix)
-            pres = torch.maximum(pres, torch.abs(d))
-        for k in joint_visits:
-            c = con[k]
-            g = arms(k)
-            r1x, r1y, r2x, r2y = g
-            bi, bj = row(ids1[k]), row(ids2[k])
-            px1, py1, q1 = bi[5], bi[6], bi[7]
-            px2, py2, q2 = bj[5], bj[6], bj[7]
-            dvx = px2 - q2 * r2y - px1 + q1 * r1y
-            dvy = py2 + q2 * r2x - py1 - q1 * r1x
-            a = acc[k]
-            if rev[k - num]:    # toward the target (dstx, dsty)
-                ex = c[7] - dvx
-                ey = c[8] - dvy
-                px = c[4] * ex + c[5] * ey
-                py = c[5] * ex + c[6] * ey
-                a[2] = a[2] + px
-                a[3] = a[3] + py
-            else:               # toward the scalar target along n
-                nx, ny = c[0], c[1]
-                dd = c[6] * (c[7] - (nx * dvx + ny * dvy))
-                px = nx * dd
-                py = ny * dd
-                a[2] = a[2] + dd
-                a[3] = a[3] + 0.0
-            joint_apply(bi, bj, g, px, py, 5)
-            pres = torch.maximum(pres, torch.maximum(torch.abs(px),
-                                                     torch.abs(py)))
+        for k in order:
+            pres = torch.maximum(
+                pres, (contact_pos if rev[k] is None else joint_pos)(k))
         converged = bool(pres < ptol)
 
-    body_out = body_flat.clone()
-    out = body_out.view(n, 8)
+    table_out = table.clone()
     for i, vals in rows.items():
-        out[i] = torch.stack(vals)
+        table_out[i] = torch.stack(vals)
     acc_out = torch.zeros((r, 4), dtype=torch.float32, device=device)
     if slots:
         acc_out[slots] = torch.stack([torch.stack(a) for a in acc])
-    return body_out, acc_out.reshape(-1), res.reshape(1)
+    return table_out.reshape(-1), acc_out.reshape(-1), res.reshape(1)

@@ -10,6 +10,9 @@ feeds the serial solve kernel (``phyx_tpu/solver.py``).
 * ``solve_pallas``: packs bodies, contacts and joint rows into the solve
   kernels' flat rows and unpacks their output — the counterpart of the
   reference's ``solve_pallas`` for the fused and streamed kernels.
+* ``solve_pallas_tiled2`` and ``solve_pallas_tiled``: the same for the
+  tiled tier, K3 on the slab-major pair buffer and K5 on rows routed here
+  to per-slab budgets (``tiling`` has the slab embedding).
 """
 
 from __future__ import annotations
@@ -19,10 +22,14 @@ from typing import Optional
 import torch
 
 from phyx_tpu_torch import math2d as m2
+from phyx_tpu_torch import tiling
+from phyx_tpu_torch.broadphase import TiledRouting, compute_aabbs
 from phyx_tpu_torch.config import SimConfig
 from phyx_tpu_torch.kernels.contact_solver import solve_contacts_fused
 from phyx_tpu_torch.kernels.contact_solver_streamed import \
     solve_contacts_streamed
+from phyx_tpu_torch.kernels.contact_solver_tiled import (
+    solve_contacts_tiled, solve_contacts_tiled2)
 from phyx_tpu_torch.narrowphase import Contacts
 from phyx_tpu_torch.types import Bodies, Joints
 
@@ -111,6 +118,19 @@ def position_threshold(cfg: SimConfig, contacts: Contacts,
     return cfg.position_rel_tol * impulse_scale(contacts, joint_warm)
 
 
+def thresholds(cfg: SimConfig, contacts: Contacts,
+               joint_warm: Optional[torch.Tensor] = None
+               ) -> Optional[torch.Tensor]:
+    """The gates' (2,) [velocity, position] thresholds, or None when the
+    configuration is ungated.  An ungated kind's threshold is 0.0, which
+    never fires."""
+    if (cfg.velocity_tol > 0.0 or cfg.velocity_rel_tol > 0.0
+            or cfg.position_rel_tol > 0.0):
+        return torch.stack([velocity_threshold(cfg, contacts, joint_warm),
+                            position_threshold(cfg, contacts, joint_warm)])
+    return None
+
+
 def pack_rows(bodies: Bodies, contacts: Contacts, num_contacts: torch.Tensor,
               cfg: SimConfig, joints: Optional[Joints] = None,
               joint_rows: Optional[torch.Tensor] = None,
@@ -147,12 +167,7 @@ def pack_rows(bodies: Bodies, contacts: Contacts, num_contacts: torch.Tensor,
         num_joints = (joints.kind != 0).sum(dtype=torch.int32)
     else:
         joint_warm = None
-    # an ungated kind's threshold is 0.0, which never fires
-    tols = None
-    if (cfg.velocity_tol > 0.0 or cfg.velocity_rel_tol > 0.0
-            or cfg.position_rel_tol > 0.0):
-        tols = torch.stack([velocity_threshold(cfg, contacts, joint_warm),
-                            position_threshold(cfg, contacts, joint_warm)])
+    tols = thresholds(cfg, contacts, joint_warm)
     return dict(body_flat=body_flat, b1=b1.contiguous(),
                 b2=b2.contiguous(), con_flat=con.reshape(-1),
                 warm_flat=warm.reshape(-1),
@@ -182,3 +197,194 @@ def solve_pallas(bodies: Bodies, contacts: Contacts,
     bodies = bodies.replace(vel=body_out[:, 0:2], angvel=body_out[:, 2],
                             dvel=body_out[:, 5:7], dangvel=body_out[:, 7])
     return bodies, acc[:c, 0], acc[:c, 1], res[0], acc[c:, 0:2]
+
+
+def _rep2(x: torch.Tensor) -> torch.Tensor:
+    """Each pair-level row twice, once per contact slot of the pair."""
+    return x[:, None].expand(x.shape[0], 2, *x.shape[1:]).reshape(
+        2 * x.shape[0], *x.shape[1:])
+
+
+def _contact_columns(contacts: Contacts) -> torch.Tensor:
+    """(C, 14) f32: the 12 contact row columns, then warm_n, warm_t."""
+    return torch.stack([
+        contacts.normal[:, 0], contacts.normal[:, 1],
+        contacts.r1[:, 0], contacts.r1[:, 1],
+        contacts.r2[:, 0], contacts.r2[:, 1],
+        contacts.mass_n, contacts.mass_t, contacts.friction,
+        contacts.dst_v, contacts.dst_dv, contacts.c_nt,
+        contacts.warm_n, contacts.warm_t], dim=1)
+
+
+def _unembed_bodies(bodies: Bodies, table: torch.Tensor, order, cfg):
+    rows = tiling.unembed(table.reshape(-1, 8), order, cfg,
+                          bodies.capacity)
+    return bodies.replace(vel=rows[:, 0:2], angvel=rows[:, 2],
+                          dvel=rows[:, 5:7], dangvel=rows[:, 7])
+
+
+def pack_tiled2(bodies: Bodies, contacts: Contacts, routing: TiledRouting,
+                cfg: SimConfig) -> dict:
+    """K3's arguments (``kernels/contact_solver_tiled.py``): the embedded
+    table from the broadphase's ranked columns, the slots in the pair
+    buffer's (slab, pi, pj) order, not compacted (slots of dead pairs lie
+    past ``cum[n_slabs]`` and are never walked; SAT-dead slots of live
+    pairs are no-ops), ``cum`` = 2 x the kept-pair cumsum, and the gate
+    thresholds of the uncompacted contacts."""
+    n = bodies.capacity
+    K, _, W, _, n_slabs, _ = tiling.slab_dims(cfg, n)
+    b12 = torch.stack([routing.lb1, routing.lb2], dim=1)
+    return dict(
+        body_flat=tiling.embed(routing.ranked_cols, cfg, n).reshape(-1),
+        b12=_rep2(b12).reshape(-1),
+        cw=_contact_columns(contacts).reshape(-1),
+        cum=routing.pair_cum * 2,
+        vel_iters=cfg.velocity_iterations, pos_iters=cfg.position_iterations,
+        n_slabs=n_slabs, slab_stride=K, window_rows=W,
+        tols=thresholds(cfg, contacts))
+
+
+def solve_pallas_tiled2(bodies: Bodies, contacts: Contacts,
+                        routing: TiledRouting, cfg: SimConfig):
+    """The slab-major tiled solve through K3.  Returns (bodies', accum_n,
+    accum_t, residual); the slab clamps were counted into ``ovf_slab`` by
+    the broadphase, and the accumulators come back in contact order."""
+    body_out, acc, res = solve_contacts_tiled2(
+        **pack_tiled2(bodies, contacts, routing, cfg))
+    acc = acc.reshape(-1, 4)
+    live = contacts.valid
+    return (_unembed_bodies(bodies, body_out, routing.order, cfg),
+            torch.where(live, acc[:, 0], 0.0),
+            torch.where(live, acc[:, 1], 0.0), res[0])
+
+
+def x_order(bodies: Bodies) -> torch.Tensor:
+    """The routed tiled solve's body ranking: a stable argsort of
+    where(active, min x, inf) (the reference's unbanded ``xorder``)."""
+    lo, _ = compute_aabbs(bodies)
+    keys = torch.where(bodies.active, lo[:, 0],
+                       torch.full_like(lo[:, 0], float("inf")))
+    return torch.sort(keys, stable=True).indices.to(torch.int32)
+
+
+def _route_rows(slab, live, n_slabs: int, cap: int, cap_all: int,
+                base_off: int):
+    """Slots of rows routed to per-slab budgets: a row's slab is its
+    ``slab``, its place the rank among its slab's live rows in row order (a
+    stable sort by slab); slab s's rows take slots ``s*cap_all + base_off +
+    rank`` up to ``cap`` of them.  Returns (slot per row, or the spill slot
+    n_slabs*cap_all for dead and overflowing rows; ok per row; live rows
+    per slab, at most ``cap``; rows past the budgets)."""
+    m = live.shape[0]
+    skey = torch.where(live, slab, n_slabs)
+    skey_s, perm = torch.sort(skey, stable=True)
+    bounds = torch.searchsorted(skey_s, torch.arange(
+        n_slabs + 1, dtype=skey_s.dtype, device=skey_s.device))
+    counts = bounds[1:] - bounds[:-1]
+    rank_s = torch.arange(m, device=skey_s.device) - bounds[skey_s]
+    rank = torch.empty_like(rank_s).index_copy_(0, perm, rank_s)
+    ok = live & (rank < cap)
+    slot = torch.where(ok, skey * cap_all + base_off + rank,
+                       n_slabs * cap_all)
+    return (slot, ok, torch.clamp(counts, max=cap).to(torch.int32),
+            torch.clamp(counts - cap, min=0).sum(dtype=torch.int32))
+
+
+def _place(slot, vals, n_slots: int) -> torch.Tensor:
+    """Rows ``vals`` written to their ``slot`` of a zero buffer of
+    ``n_slots`` rows; the spill slot ``n_slots`` is dropped."""
+    out = torch.zeros((n_slots + 1, vals.shape[1]), dtype=vals.dtype,
+                      device=vals.device)
+    return out.index_copy_(0, slot, vals)[:n_slots]
+
+
+def pack_tiled(bodies: Bodies, contacts: Contacts, xorder: torch.Tensor,
+               cfg: SimConfig, joints: Optional[Joints] = None,
+               joint_rows: Optional[torch.Tensor] = None,
+               joint_warm: Optional[torch.Tensor] = None):
+    """K5's arguments (``kernels/contact_solver_tiled.py``) and what
+    un-routing needs.  Bodies embedded by ``xorder``; contacts routed at
+    pair level (both slots of a pair share endpoints) and joint rows like
+    them (``tiling.route_pairs``); per-slab budgets of ``cbps`` 1024-slot
+    blocks, cbps = ceil(2c / n_slabs / 1024) (at least 2 with one slab),
+    and likewise for joints (at least one block), as in the reference.
+    Returns (args, (contact slots, contact ok, joint slots, joint ok),
+    tiled overflow: clamped live rows plus rows past the budgets)."""
+    n = bodies.capacity
+    c = contacts.valid.shape[0]
+    j_cap = 0 if joints is None else joints.capacity
+    K, _, W, _, n_slabs, _ = tiling.slab_dims(cfg, n)
+    xo = xorder.to(torch.int64)
+    rank = torch.empty_like(xo).index_copy_(
+        0, xo, torch.arange(n, device=xo.device))
+    ranked_cols = torch.stack([bodies.vel[:, 0], bodies.vel[:, 1],
+                               bodies.angvel, bodies.inv_mass,
+                               bodies.inv_inertia], dim=1)[xo]
+    pz = tiling.pz_table(rank, tiling.zero_safe_mask(bodies), cfg, n)
+
+    blk = tiling.BLK
+    cbps = -(-(2 * c // n_slabs) // blk)
+    if n_slabs == 1:
+        cbps = max(cbps, 2)
+    jbps = max(1, -(-(2 * j_cap // n_slabs) // blk)) if j_cap else 0
+    cap_c, cap_j = cbps * blk, jbps * blk
+    cap_all = cap_c + cap_j
+    n_slots = n_slabs * cap_all
+
+    live = contacts.valid
+    lb1, lb2, slab, in_win = tiling.route_pairs(
+        pz, contacts.b1[0::2], contacts.b2[0::2], cfg, n)
+    lb1, lb2, slab, in_win = (_rep2(x) for x in (lb1, lb2, slab, in_win))
+    c_slot, c_ok, counts_c, ovf_c = _route_rows(slab, live, n_slabs, cap_c,
+                                                cap_all, 0)
+    ovf = (live & ~in_win).sum(dtype=torch.int32) + ovf_c
+    slots = [c_slot]
+    b12 = [torch.stack([lb1 - slab * K, lb2 - slab * K], dim=1)]
+    cw = [_contact_columns(contacts)]
+    counts_j = torch.zeros_like(counts_c)
+    j_slot = j_ok = None
+    if j_cap:
+        jlive = joints.kind != 0
+        jb1, jb2, jslab, jin = tiling.route_pairs(
+            pz, torch.clamp(joints.b1, 0, n - 1),
+            torch.clamp(joints.b2, 0, n - 1), cfg, n)
+        j_slot, j_ok, counts_j, ovf_j = _route_rows(
+            jslab, jlive, n_slabs, cap_j, cap_all, cap_c)
+        ovf = ovf + (jlive & ~jin).sum(dtype=torch.int32) + ovf_j
+        slots.append(j_slot)
+        b12.append(torch.stack([jb1 - jslab * K, jb2 - jslab * K], dim=1))
+        cw.append(torch.cat([joint_rows, joint_warm], dim=1))
+    slots = torch.cat(slots)
+    args = dict(
+        body_flat=tiling.embed(ranked_cols, cfg, n).reshape(-1),
+        b12=_place(slots, torch.cat(b12).to(torch.int32),
+                   n_slots).reshape(-1),
+        cw=_place(slots, torch.cat(cw), n_slots).reshape(-1),
+        slab_counts=torch.cat([counts_c, counts_j]),
+        vel_iters=cfg.velocity_iterations, pos_iters=cfg.position_iterations,
+        n_slabs=n_slabs, slab_stride=K, window_rows=W, j_slots=cap_j,
+        tols=thresholds(cfg, contacts, joint_warm if j_cap else None))
+    return args, (c_slot, c_ok, j_slot, j_ok), ovf
+
+
+def solve_pallas_tiled(bodies: Bodies, contacts: Contacts,
+                       xorder: torch.Tensor, cfg: SimConfig,
+                       joints: Optional[Joints] = None,
+                       joint_rows: Optional[torch.Tensor] = None,
+                       joint_warm: Optional[torch.Tensor] = None):
+    """The routed tiled solve through K5 (``pack_tiled``), accumulators
+    gathered back to row order, zero outside live rows inside their
+    budget.  Returns (bodies', accum_n, accum_t, residual, tiled overflow,
+    joint_accum (J, 2))."""
+    args, (c_slot, c_ok, j_slot, j_ok), ovf = pack_tiled(
+        bodies, contacts, xorder, cfg, joints, joint_rows, joint_warm)
+    body_out, acc, res = solve_contacts_tiled(**args)
+    acc = torch.cat([acc.reshape(-1, 4),
+                     torch.zeros((1, 4), dtype=acc.dtype, device=acc.device)])
+    acc_c = torch.where(c_ok[:, None], acc[c_slot, 0:2], 0.0)
+    joint_accum = torch.zeros((0, 2), dtype=torch.float32,
+                              device=acc.device)
+    if j_slot is not None:
+        joint_accum = torch.where(j_ok[:, None], acc[j_slot, 0:2], 0.0)
+    return (_unembed_bodies(bodies, body_out, xorder, cfg), acc_c[:, 0],
+            acc_c[:, 1], res[0], ovf, joint_accum)

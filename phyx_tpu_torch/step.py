@@ -13,13 +13,19 @@ One frame, with no host round-trip:
     -> integrate positions (velocity + split-impulse pseudo-velocity)
     -> rebuild cache, emit stats
 
-Ported so far: ``solver_backend="pallas"``, with and without user joints.
-One predicate picks the kernel (``kernels/contact_solver.fits``): the
-fused kernel, whose body table and accumulators sit in one block's shared
-memory, when they fit its 227 KB (the 1k pile, the 1000-link chain); the
-streamed kernel, which keeps them in device memory, otherwise (the 10k
-pile).  The two compute the same thing bit for bit.  The reference's TPU
-budget tiers do not carry over.
+Ported so far: ``solver_backend="pallas"`` and ``"pallas_tiled"``, with
+and without user joints.  Which function the solve computes follows the
+reference (``tiling.resolve_tiled``): the tiled tier where the reference
+tiles (``pallas_tiled``, or bodies above its streamed budget, as the 20k
+pile), through K3 on the slab-major pair buffer, or K5 on rows routed to
+slab budgets for jointed scenes and ``tiled_routing=False``; elsewhere the
+serial row order.  There one predicate picks the kernel
+(``kernels/contact_solver.fits``): the fused kernel, whose body table and
+accumulators sit in one block's shared memory, when they fit its 227 KB
+(the 1k pile, the 1000-link chain); the streamed kernel, which keeps them
+in device memory, otherwise (the 10k pile).  The two compute the same
+thing bit for bit.  Where the reference falls back to its colored solve,
+the port raises (ROADMAP M10).
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ import numpy as np
 import torch
 
 from phyx_tpu_torch import math2d as m2
-from phyx_tpu_torch import solver
+from phyx_tpu_torch import solver, tiling
 from phyx_tpu_torch.broadphase import Pairs, broadphase, lex_sort_pairs
 from phyx_tpu_torch.cache import build_cache, lex_join, warm_start_from_cache
 from phyx_tpu_torch.config import SimConfig
@@ -107,20 +113,48 @@ def prepare_joint_stage(bodies: Bodies, joints: Joints, cfg: SimConfig):
     return prepare_joint_rows(bodies, joints, cfg)
 
 
-def solve_stage(bodies: Bodies, contacts: Contacts, joints: Joints,
-                joint_rows, joint_warm, cfg: SimConfig):
-    """Compaction + the serial solve (contacts, then joint rows) + the
-    accumulator un-permute.  Returns (bodies', accum_n, accum_t, residual,
-    joints with this frame's accumulated impulses)."""
-    if cfg.solver_backend != "pallas":
+def solve_stage(bodies: Bodies, contacts: Contacts, pairs: Pairs,
+                joints: Joints, joint_rows, joint_warm, cfg: SimConfig):
+    """The solve, in the reference's branch order (``phyx_tpu/step.py``
+    solve_stage): the tiled tier (K3 when the pairs carry slab-major
+    routing and there are no joints, else K5, whose slab clamps and budget
+    overflow are added to the pairs' counters); the colored fallback
+    raises; else compaction, K2 or K1, and the accumulator un-permute.
+    Returns (bodies', accum_n, accum_t, residual, joints with this frame's
+    accumulated impulses, pairs)."""
+    if cfg.solver_backend not in ("pallas", "pallas_tiled"):
         raise NotImplementedError(
             f"solver_backend={cfg.solver_backend!r} is not ported yet: "
-            "ROADMAP M10 (xla, the colored backend) / M11 (pallas_tiled)")
+            "ROADMAP M10 (the colored backend)")
+    n = bodies.capacity
+    c_cap = contacts.valid.shape[0]
+    if tiling.resolve_tiled(cfg, n, c_cap):
+        if pairs.routing is not None and joints.capacity == 0:
+            bodies, accum_n, accum_t, residual = solver.solve_pallas_tiled2(
+                bodies, contacts, pairs.routing, cfg)
+            return bodies, accum_n, accum_t, residual, joints, pairs
+        (bodies, accum_n, accum_t, residual, ovf,
+         joint_accum) = solver.solve_pallas_tiled(
+            bodies, contacts, solver.x_order(bodies), cfg,
+            joints if joints.capacity else None, joint_rows, joint_warm)
+        pairs = pairs.replace(overflow=pairs.overflow + ovf,
+                              ovf_slab=pairs.ovf_slab + ovf)
+        if joints.capacity:
+            joints = joints.replace(accum=joint_accum)
+        return bodies, accum_n, accum_t, residual, joints, pairs
+    if cfg.solver_backend == "pallas_tiled":
+        raise ValueError(f"pallas_tiled needs the contact slots (2 x "
+                         f"max_pairs = {c_cap}) in whole blocks of "
+                         f"{tiling.BLK}, at least two")
+    if tiling.colored_fallback(cfg, n, c_cap, joints.capacity):
+        raise NotImplementedError(
+            f"{n} bodies with {c_cap} contact slots (not whole blocks of "
+            f"{tiling.BLK}, at least two) take the reference's colored "
+            "solve, which is not ported yet: ROADMAP M10")
     compacted, order, num_live = compact_contacts(contacts)
-    # the tier predicate: the fused kernel when its state fits one block's
-    # shared memory, else the streamed one
-    fused = contact_solver.fits(bodies.capacity,
-                                order.shape[0] + joints.capacity)
+    # the kernel predicate: the fused kernel when its state fits one
+    # block's shared memory, else the streamed one
+    fused = contact_solver.fits(n, c_cap + joints.capacity)
     (bodies, accum_n, accum_t, residual,
      joint_accum) = solver.solve_pallas(
         bodies, compacted, num_live, cfg, fused, joints, joint_rows,
@@ -130,7 +164,7 @@ def solve_stage(bodies: Bodies, contacts: Contacts, joints: Joints,
     back[order] = torch.stack([accum_n, accum_t], dim=1)
     if joints.capacity:
         joints = joints.replace(accum=joint_accum)
-    return bodies, back[:, 0], back[:, 1], residual, joints
+    return bodies, back[:, 0], back[:, 1], residual, joints, pairs
 
 
 def contact_stage(state: State, cfg: SimConfig):
@@ -139,7 +173,10 @@ def contact_stage(state: State, cfg: SimConfig):
     joints' rows.  Returns (bodies, pairs, prepared contacts, joint rows,
     joint warm impulses)."""
     bodies = integrate_velocities(state.bodies, cfg)
-    pairs = broadphase(bodies, cfg)
+    # jointed scenes: no slab-major routing (the jointed-pair exclusion
+    # re-sorts the buffer; the jointed tiled solve is K5)
+    pairs = broadphase(bodies, cfg, tiled_routing=False
+                       if state.joints.capacity else None)
     if state.joints.capacity:
         pairs = exclude_joint_pairs(pairs, state.joints)
     contacts, pair_props = narrowphase_with_props(bodies, pairs, cfg)
@@ -177,8 +214,8 @@ def step(state: State, cfg: SimConfig) -> State:
     """One simulation frame: State -> State, no host round-trip."""
     bodies, pairs, contacts, joint_rows, joint_warm = contact_stage(
         state, cfg)
-    bodies, accum_n, accum_t, residual, joints = solve_stage(
-        bodies, contacts, state.joints, joint_rows, joint_warm, cfg)
+    bodies, accum_n, accum_t, residual, joints, pairs = solve_stage(
+        bodies, contacts, pairs, state.joints, joint_rows, joint_warm, cfg)
     return finish_stage(state, cfg, bodies, joints, pairs, contacts,
                         accum_n, accum_t, residual)
 
@@ -198,10 +235,26 @@ def stats_dict(stats: SolverStats) -> dict:
             for f in dataclasses.fields(stats)}
 
 
-def solve_inputs(state: State, cfg: SimConfig) -> dict:
+def solve_inputs(state: State, cfg: SimConfig, path=None) -> dict:
     """The solve kernel's arguments for the frame ``step(state, cfg)``
-    would run (for comparing the kernels with their plain version)."""
-    bodies, _, contacts, joint_rows, joint_warm = contact_stage(state, cfg)
+    would run (for comparing the kernels with their plain version).
+    ``path`` names the solve: "rows" (K1 and K2, on the compacted
+    contacts), "tiled2" (K3, on the slab-major pairs) or "tiled" (K5);
+    None = the one the step takes."""
+    bodies, pairs, contacts, joint_rows, joint_warm = contact_stage(
+        state, cfg)
+    if path is None:
+        path = "rows"
+        if tiling.resolve_tiled(cfg, bodies.capacity,
+                                contacts.valid.shape[0]):
+            path = ("tiled2" if pairs.routing is not None
+                    and state.joints.capacity == 0 else "tiled")
+    if path == "tiled2":
+        return solver.pack_tiled2(bodies, contacts, pairs.routing, cfg)
+    joints = state.joints if state.joints.capacity else None
+    if path == "tiled":
+        return solver.pack_tiled(bodies, contacts, solver.x_order(bodies),
+                                 cfg, joints, joint_rows, joint_warm)[0]
     compacted, _, num_live = compact_contacts(contacts)
     return solver.pack_rows(bodies, compacted, num_live, cfg, state.joints,
                             joint_rows, joint_warm)

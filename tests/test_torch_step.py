@@ -127,8 +127,7 @@ def test_rollout_equals_steps():
         np.testing.assert_array_equal(a[k], b[k], k)
 
 
-@pytest.mark.parametrize("backend,roadmap", [("xla", "M10"),
-                                             ("pallas_tiled", "M11")])
+@pytest.mark.parametrize("backend,roadmap", [("xla", "M10")])
 def test_unported_backends_raise(backend, roadmap):
     cfg = SimConfig(**dict(PILE, solver_backend=backend))
     st = scenes.pile(cfg, 10, seed=0).build("cpu")
