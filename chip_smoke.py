@@ -6,47 +6,56 @@
 Phases; any failure raises and the script exits non-zero:
 
 1. device  — require CUDA; print the card's name and power limit.
-2. build   — build the four solve kernels from the three sources of
+2. build   — build the five kernels from the four sources of
              ``phyx_tpu_torch/csrc``, one ``nvcc`` each, started together:
-             K1, the streamed kernel (state in device memory), K2, the
-             fused kernel (state in shared memory), and in one source K3
-             and K5, the slab-major and the routed tiled kernels (the
-             x-rank embedded body table in device memory).
-3. compare — each kernel against the plain torch version on the packed
-             solve input of small frames on the card, gates off and on:
-             K1 and K2 on a 200-box pile (contacts only), a loaded bridge
-             (revolute rows and contacts) and a net (distance rows); K3
-             and K5 on a 300-box pile over three slabs and a 200-box pile
-             with a moving static, K5 on a tiled loaded bridge and net.
-             Body rows, accumulators and residual must be equal (exact
-             float32 equality), and K1 must equal K2.  Then the whole step
-             on the card against the step on the CPU: a 60-box pile, a
-             20-link chain, a loaded bridge and a 150-box tiled pile
-             through K3 and through K5.
+             K1, the streamed solve (state in device memory), K2, the
+             fused solve (state in shared memory), in one source K3 and
+             K5, the slab-major and the routed tiled solves (the x-rank
+             embedded body table in device memory), and K4, the
+             slab-windowed sweep (count, prefix sum, emit).
+3. compare — each solve kernel against the plain torch version on the
+             packed solve input of small frames on the card, gates off and
+             on: K1 and K2 on a 200-box pile (contacts only), a loaded
+             bridge (revolute rows and contacts) and a net (distance rows);
+             K3 and K5 on a 300-box pile over three slabs and a 200-box
+             pile with a moving static, K5 on a tiled loaded bridge and
+             net.  Body rows, accumulators and residual must be equal
+             (exact float32 equality), and K1 must equal K2.  K4 against
+             its plain version on a two-slab banded 64-env mega-scene
+             (true-x accept on and off), the same in the segmented layout,
+             and numpy-made rows that force ``ovf_window`` and, with a
+             small budget, ``ovf_drop``: pairs equal on [0, num), counters
+             equal; K4's device time on the first.  Then the whole step on
+             the card against the step on the CPU: a 60-box pile, a 20-link
+             chain, a loaded bridge, a 150-box tiled pile through K3 and
+             through K5, and an 8-env banded mega-scene through K4 + K3 and
+             through K4 + K5.
 4. pile10k — the 10k-box pile at the bench's settings (cap 16,384 bodies,
              32,256 pairs, sap_grid window 192 / 8 hits, 10+6 passes)
-             through ``rollout``: a 300-frame settle in which no step may
-             wait for the device, then frames timed by the slope
-             t(2n) - t(n) over n, each launching K1 once and K2 never;
-             finite state, contacts present, bench.py's quality bar met;
-             the device time of the step's stages (CUDA events); K1
+             through ``rollout``: a 200-frame settle (the bench's 300,
+             cut for the script's time) in which no step may wait for the
+             device, then frames timed by the slope
+             t(2n) - t(n) over n, each launching K1 once and no other
+             kernel; finite state, contacts present, bench.py's quality bar
+             met; the device time of the step's stages (CUDA events); K1
              against its plain version at the frame's shapes on fewer
              passes, gates off and on, and both timed.
 5. chain   — the 1000-link revolute chain at bench row C's settings (cap
              1024 bodies, 2048 pairs, 1024 joints, the same broadphase and
              passes): 300-frame settle without host waits, slope timing,
-             each frame launching K2 once and K1 never; bench.py's joint
-             bar (overflow 0, residual <= 1e-2), finite state; stage times;
-             K2 against the plain version at the frame's shapes on fewer
-             passes, gates off and on; K1 == K2 on the full frame, and both
-             timed there.
+             each frame launching K2 once and no other kernel; bench.py's
+             joint bar (overflow 0, residual <= 1e-2), finite state; stage
+             times; K2 against the plain version at the frame's shapes on
+             fewer passes, gates off and on; K1 == K2 on the full frame,
+             and both timed there.
 6. pile1k  — the 1k pile (cap 1024, 3584 pairs): 400-frame settle, slope
              timing, K2 once a frame, the 0.6 penetration bar; stage times;
              K2 against the plain version at the frame's shapes, gates off
              and on.
 7. pile20k — the 20k pile (cap 32,768, 64,000 pairs: the tiled tier,
-             3 slabs of the default 16,384-row stride): 300-frame settle
-             without host waits, slope timing, K3 once a frame and no
+             3 slabs of the default 16,384-row stride): 150-frame settle
+             (the bench's 300, cut for the script's time) without host
+             waits, slope timing, K3 once a frame and no
              other kernel; every overflow counter 0, the 0.6 penetration
              bar, finite state; stage times; K3 against the plain version
              at the frame's shapes (warm + 1 velocity pass) and timed on
@@ -55,6 +64,18 @@ Phases; any failure raises and the script exits non-zero:
              without host waits, K5 launched once, within 5e-3 of the K3
              frame; K5 against its plain version at that frame's routed
              shapes (warm + 1 velocity pass) and timed on all passes.
+8. envs128 — bench row E cut to 128 envs x 256 boxes (bench.py's
+             build_envs: band grid of 8 y-bands x 16 x-cells, banded keys,
+             cap 33,792, 104,960 pairs), ``broadphase="sap"`` and the
+             pallas backend, which take K4 and K3: 240-frame settle without
+             host waits, slope timing, K4 and K3 once a frame each and no
+             other kernel; every overflow counter 0, penetration ratio
+             <= 0.2, finite state; env-steps/s beside the reference's
+             per-env fingerprint; stage times; K4 against its plain version
+             at the settled frame, both timed (K4's two launches and prefix
+             sum on device behind a sleep kernel, and the wrapper's pace);
+             K3 against its plain version at that frame (warm + 1 velocity
+             pass) and timed on all passes.
 
 Prints a JSON line per main-path phase (physics, rate, stage times), a
 JSON line of the kernels, the card's ``nvidia-smi`` name and power limit,
@@ -84,25 +105,29 @@ def _sync():
 
 
 def _wrappers() -> dict:
-    """Every solve kernel's wrapper, by name."""
+    """Every kernel's wrapper, by name."""
     from phyx_tpu_torch.kernels.contact_solver import solve_contacts_fused
     from phyx_tpu_torch.kernels.contact_solver_streamed import \
         solve_contacts_streamed
     from phyx_tpu_torch.kernels.contact_solver_tiled import (
         solve_contacts_tiled, solve_contacts_tiled2)
+    from phyx_tpu_torch.kernels.sweep_tiled import sweep_emit_tiled
     return dict(K1=solve_contacts_streamed, K2=solve_contacts_fused,
-                K3=solve_contacts_tiled2, K5=solve_contacts_tiled)
+                K3=solve_contacts_tiled2, K4=sweep_emit_tiled,
+                K5=solve_contacts_tiled)
 
 
 def _plains() -> dict:
-    """Every solve kernel's plain version, by name."""
+    """Every kernel's plain version, by name."""
     from phyx_tpu_torch.kernels.contact_solver_streamed import \
         solve_contacts_streamed_plain
     from phyx_tpu_torch.kernels.contact_solver_tiled import (
         solve_contacts_tiled2_plain, solve_contacts_tiled_plain)
+    from phyx_tpu_torch.kernels.sweep_tiled import sweep_emit_tiled_plain
     return dict(K1=solve_contacts_streamed_plain,
                 K2=solve_contacts_streamed_plain,
-                K3=solve_contacts_tiled2_plain, K5=solve_contacts_tiled_plain)
+                K3=solve_contacts_tiled2_plain, K4=sweep_emit_tiled_plain,
+                K5=solve_contacts_tiled_plain)
 
 
 def _reset_counts():
@@ -297,6 +322,128 @@ def phase_compare_tiled() -> dict:
     return out
 
 
+# tests/test_torch_sweep.py's band grid: 4 y-bands 120 apart, x cells 40
+# apart; 64 envs of 24 boxes fill two sweep slabs (K 1024)
+ENVS_SMALL = dict(max_bodies=2048, max_pairs=8192, broadphase="sap_tiled",
+                  solver_backend="pallas_tiled", tile_stride=1024,
+                  tile_halo=1024, sweep_band_h=120.0, sweep_band_y0=-60.0,
+                  sweep_band_span=1024.0)
+
+
+def _jittered_envs(segmented: bool):
+    """64 envs x 24 boxes on the band grid, with numpy-made rotations and
+    position noise (so boxes overlap), on the card: (cfg, bodies)."""
+    import numpy as np
+    from phyx_tpu_torch import SimConfig, scenes
+    from phyx_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from phyx_tpu_torch.parallel.envs import concat_envs
+    cfg = SimConfig(**ENVS_SMALL, **(dict(
+        sweep_band_rows=25, sweep_band_n=4, sweep_band_cols=16)
+        if segmented else {}))
+    mega, _, _ = concat_envs(
+        [scenes.pile(cfg, 24, seed=s, ground_half=8.0) for s in range(64)],
+        cfg, band_width=40.0, y_bands=4, band_height=120.0)
+    st = state_to_numpy(mega.build("cpu"))
+    rng = np.random.default_rng(9)
+    b = st.bodies
+    box = (b.inv_mass > 0) & b.active
+    b.pos[box] += rng.normal(0.0, 0.06, (box.sum(), 2)).astype(np.float32)
+    ang = rng.uniform(-0.5, 0.5, box.sum())
+    b.rot[box] = np.stack([np.cos(ang), np.sin(ang)], -1).astype(np.float32)
+    return cfg, state_from_numpy(st, "cuda").bodies
+
+
+def _numpy_rows(seed: int, max_pairs: int) -> dict:
+    """tests/test_torch_sweep.py's rows on the card: sorted over two slabs
+    (K 1024, W 2048), narrow intervals and five wide ones near the first
+    slab's end, whose walks reach the window end."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    K, W, n_slabs = 1024, 2048, 2
+    npad, nact = (n_slabs - 1) * K + W, 2900
+    xlo = np.sort(rng.uniform(0.0, 1000.0, nact))
+    xhi = xlo + rng.uniform(0.0, 1.5, nact)
+    xhi[rng.choice(np.arange(990, 1024), 5, replace=False)] = 5000.0
+    ylo = rng.uniform(0.0, 10.0, nact)
+    yhi = ylo + rng.uniform(0.5, 3.0, nact)
+    pad = np.full(npad - nact, np.inf)
+    rows = np.stack([np.concatenate([c, pad]) for c in (xlo, ylo, xhi, yhi)])
+    dyn = np.concatenate([(rng.random(nact) < 0.7), np.zeros(npad - nact)])
+    order = np.concatenate([rng.permutation(nact),
+                            np.full(npad - nact, np.iinfo(np.int32).max)])
+
+    def card(x, dtype):
+        return torch.from_numpy(x.astype(dtype)).cuda()
+
+    return dict(rows=card(rows, np.float32), dyn=card(dyn, np.int32),
+                order=card(order, np.int32),
+                nact=torch.full((), nact, dtype=torch.int32, device="cuda"),
+                max_pairs=max_pairs, n_slabs=n_slabs, slab_stride=K,
+                window_rows=W, truex=None)
+
+
+def _compare_sweep(args) -> tuple:
+    """K4 against its plain version on the same CUDA tensors: the pairs on
+    [0, num) and the three counters.  Returns (mismatches, the plain
+    version's counters, its ms), raising on any mismatch."""
+    got = _wrappers()["K4"](**args)
+    _sync()
+    t0 = time.perf_counter()
+    ref = _plains()["K4"](**args)
+    _sync()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(zip(("num", "ovf_drop", "ovf_window"),
+                      (int(x) for x in ref[2:])))
+    bad = sum(int(g) != c for g, c in zip(got[2:], counts.values()))
+    num = counts["num"]
+    bad += sum(int((g[:num] != r[:num]).sum()) for g, r in zip(got[:2],
+                                                                 ref[:2]))
+    if bad:
+        raise AssertionError(f"K4 differs from its plain version: {bad} "
+                             f"mismatches (plain {counts}, kernel "
+                             f"{[int(x) for x in got[2:]]})")
+    return bad, counts, plain_ms
+
+
+def phase_compare_sweep() -> dict:
+    """K4 against its plain version on small inputs on the card: the
+    two-slab banded env mega-scene (true-x accept on and off), the same in
+    the segmented layout, and numpy-made rows that force ``ovf_window`` and,
+    with a small budget, ``ovf_drop``.  Returns the max mismatch count and,
+    on the first input, K4's device time, its plain version's and the
+    bound."""
+    from phyx_tpu_torch.broadphase import _sap_tiled_sort_stage, compute_aabbs
+    cases = []
+    for layout in ("banded", "segmented"):
+        cfg, bodies = _jittered_envs(layout == "segmented")
+        lo, hi = compute_aabbs(bodies)
+        args = _sap_tiled_sort_stage(bodies, cfg, lo, hi)[0]
+        cases += [(f"64-env {layout} mega-scene, true-x accept", args, None),
+                  (f"64-env {layout} mega-scene, true-x off",
+                   dict(args, truex=None), None)]
+    cases += [(f"numpy rows, budget {mp}", _numpy_rows(7, mp), counter)
+              for mp, counter in ((8192, "ovf_window"), (1024, "ovf_drop"))]
+    worst, out = 0, {}
+    for what, args, counter in cases:
+        err, counts, plain_ms = _compare_sweep(args)
+        worst = max(worst, err)
+        if not out:
+            out = dict(ms=_sweep_device_ms(args, reps=20)["device_ms"],
+                       plain_ms=plain_ms,
+                       bound_ms=_bound_sweep(args, counts["num"])["bound_ms"])
+        if counter is None and not (counts["num"] > 300
+                                    and counts["ovf_drop"] == 0
+                                    and counts["ovf_window"] == 0):
+            raise AssertionError(f"K4 on the {what}: {counts}")
+        if counter is not None and counts[counter] <= 0:
+            raise AssertionError(f"K4 on the {what}: no {counter}: {counts}")
+        print(f"# compare: K4 == plain on the {what} ({args['n_slabs']} "
+              f"slabs of {args['slab_stride']}, window "
+              f"{args['window_rows']}): {counts}", flush=True)
+    return dict(out, max_abs_err=worst)
+
+
 def phase_step_parity() -> float:
     """The whole step on the card against the same step on the CPU (whose
     stages the CPU tests hold to the JAX package), re-synced every frame:
@@ -306,6 +453,7 @@ def phase_step_parity() -> float:
     import numpy as np
     from phyx_tpu_torch import SimConfig, scenes
     from phyx_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from phyx_tpu_torch.parallel.envs import concat_envs
     from phyx_tpu_torch.step import rollout, step
     pile = SimConfig(max_bodies=64, max_pairs=256, broadphase="sap_grid",
                      sap_window=32, solver_backend="pallas")
@@ -316,6 +464,14 @@ def phase_step_parity() -> float:
     routed = tiled.replace(tiled_routing=False)
     tiled_pile = rollout(scenes.pile(tiled, 150, seed=0).build("cpu"),
                          tiled, 6)
+    # tests/test_torch_envs.py's 8-env band grid through "sap" (K4)
+    envs = SimConfig(**dict(TILED_SMALL, max_bodies=256, broadphase="sap",
+                            sap_long_k=4, sweep_band_h=120.0,
+                            sweep_band_y0=-60.0, sweep_band_span=256.0))
+    mega, _, _ = concat_envs(
+        [scenes.pile(envs, 24, seed=s, ground_half=8.0) for s in range(8)],
+        envs, band_width=40.0, y_bands=4, band_height=120.0)
+    env_state = rollout(mega.build("cpu"), envs, 4)
     cases = (
         ("60-box pile", pile, scenes.pile(pile, 60, seed=1).build("cpu")),
         ("20-link chain", jointed,
@@ -324,6 +480,9 @@ def phase_step_parity() -> float:
             jointed, 8, load_boxes=3).build("cpu"), jointed, 50)),
         ("150-box tiled pile (K3)", tiled, tiled_pile),
         ("150-box tiled pile, routed (K5)", routed, tiled_pile),
+        ("8-env mega-scene (K4 + K3)", envs, env_state),
+        ("8-env mega-scene, routed (K4 + K5)",
+         envs.replace(tiled_routing=False), env_state),
     )
     worst = 0.0
     for what, cfg, st in cases:
@@ -468,17 +627,23 @@ def _bench_cfg(scene: str, boxes: int):
                      num_colors=24, solver_backend="pallas")
 
 
-def _drive(scene: str, boxes: int, settle: int, kernel: str, card: str):
-    """Builds the bench scene on the card, settles it with every
-    synchronising call an error, then times frames by the slope
-    t(2n) - t(n) with the launch counts zeroed just before and read just
-    after.  Returns (state, cfg, dict of the run's numbers)."""
+def _drive(scene: str, boxes: int, settle: int, kernels: tuple, card: str,
+           built=None):
+    """Builds the scene on the card (``built`` = (cfg, state), else
+    bench.py's build() of ``scene``), settles it with every synchronising
+    call an error, then times frames by the slope t(2n) - t(n) with the
+    launch counts zeroed just before and read just after: each kernel named
+    in ``kernels`` must launch once a frame, every other never.  Returns
+    (state, cfg, dict of the run's numbers)."""
     import torch
     from phyx_tpu_torch import scenes
     from phyx_tpu_torch.step import rollout, stats_dict
-    cfg = _bench_cfg(scene, boxes)
-    kw = {"seed": 0} if scene == "pile" else {}
-    st = getattr(scenes, scene)(cfg, boxes, **kw).build()
+    if built is None:
+        cfg = _bench_cfg(scene, boxes)
+        kw = {"seed": 0} if scene == "pile" else {}
+        st = getattr(scenes, scene)(cfg, boxes, **kw).build()
+    else:
+        cfg, st = built
     _sync()
     t0 = time.perf_counter()
     # a step must not wait for the device: any synchronizing call raises
@@ -493,8 +658,8 @@ def _drive(scene: str, boxes: int, settle: int, kernel: str, card: str):
     st = rollout(st, cfg, 2)
     _sync()
     frame_s = (time.perf_counter() - t0) / 2
-    # about 20 s for the 3n frames, 4 <= n <= 100
-    n = max(4, min(100, int(20.0 / max(frame_s, 1e-3) / 3)))
+    # about 10 s for the 3n frames, 4 <= n <= 100
+    n = max(4, min(100, int(10.0 / max(frame_s, 1e-3) / 3)))
 
     _reset_counts()
     t0 = time.perf_counter()
@@ -505,10 +670,10 @@ def _drive(scene: str, boxes: int, settle: int, kernel: str, card: str):
     _sync()
     t2 = time.perf_counter()
     launches = _counts()
-    if launches != {k: 3 * n if k == kernel else 0 for k in launches}:
+    if launches != {k: 3 * n if k in kernels else 0 for k in launches}:
         raise AssertionError(f"{scene}: launches {launches} in {3 * n} "
-                             f"frames, expected {kernel} once a frame and "
-                             "no other kernel")
+                             f"frames, expected {' and '.join(kernels)} "
+                             "once a frame and no other kernel")
     per_frame = ((t2 - t1) - (t1 - t0)) / n
     if not per_frame > 0.0:
         raise AssertionError(f"slope timing not positive: t(n)={t1 - t0}, "
@@ -560,7 +725,8 @@ def _kernel_at_frame(st, cfg, wrapper, name) -> dict:
 def phase_pile10k(card: str) -> dict:
     """The settled 10k pile through K1, the path of the first slice."""
     w = _wrappers()
-    st, cfg, out = _drive("pile", 10_000, 300, "K1", card)
+    # settle cut from the bench's 300 frames to keep the script in time
+    st, cfg, out = _drive("pile", 10_000, 200, ("K1",), card)
     if out["num_contacts"] <= 0:
         raise AssertionError("no contacts in the 10k pile")
     # bench.py's quality bar for piles: no overflow, penetration <= 0.6
@@ -584,7 +750,7 @@ def phase_chain(card: str) -> dict:
     """Bench row C: the 1000-link chain, through K2; K1 on the same input
     must equal it."""
     w = _wrappers()
-    st, cfg, out = _drive("chain", 1000, 300, "K2", card)
+    st, cfg, out = _drive("chain", 1000, 300, ("K2",), card)
     # bench.py's joint bar: no overflow, joint residual <= 1e-2
     if out["pair_overflow"] != 0 or not out["residual"] <= 1e-2:
         raise AssertionError(f"chain bar missed: overflow "
@@ -610,7 +776,7 @@ def phase_chain(card: str) -> dict:
 def phase_pile1k(card: str) -> dict:
     """Bench row B': the 1k pile, settled 400 frames, through K2."""
     w = _wrappers()
-    st, cfg, out = _drive("pile", 1000, 400, "K2", card)
+    st, cfg, out = _drive("pile", 1000, 400, ("K2",), card)
     pen_ratio = out["max_penetration"] / 0.5
     if (out["num_contacts"] <= 0 or out["pair_overflow"] != 0
             or not pen_ratio <= 0.6):
@@ -642,7 +808,8 @@ def phase_pile20k(card: str) -> dict:
     import torch
     from phyx_tpu_torch.step import solve_inputs, step
     wrappers = _wrappers()
-    st, cfg, out = _drive("pile", 20_000, 300, "K3", card)
+    # settle cut from the bench's 300 frames to keep the script in time
+    st, cfg, out = _drive("pile", 20_000, 150, ("K3",), card)
     pen_ratio = out["max_penetration"] / 0.5
     ovf = {k: out[k] for k in ("pair_overflow", "ovf_window", "ovf_slots",
                                "ovf_drop", "ovf_band", "ovf_slab")}
@@ -687,7 +854,7 @@ def phase_pile20k(card: str) -> dict:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     _sync()
-    if k5_launches != dict(K1=0, K2=0, K3=0, K5=1):
+    if k5_launches != dict(K1=0, K2=0, K3=0, K4=0, K5=1):
         raise AssertionError(f"K5 frame launches {k5_launches}")
     k5_diff = (via_k3.bodies.pos - via_k5.bodies.pos).abs().max().item()
     if not (torch.isfinite(via_k5.bodies.pos).all().item()
@@ -734,6 +901,193 @@ def phase_pile20k(card: str) -> dict:
                 walked_slots=k5_walked))
 
 
+def _envs_scene(num_envs: int, boxes_per_env: int):
+    """bench.py's build_envs (bench.py:96-157) with its defaults (banded
+    keys, no segmented sort, ``broadphase="sap"``, window 96 / 8 hits) and
+    the pallas backend: per-env piles (seed = env, ground half 30) on a
+    band grid of 8 y-bands 400 apart and x cells 80 apart.  Returns (cfg,
+    state on the card)."""
+    from phyx_tpu_torch import SimConfig, scenes
+    from phyx_tpu_torch.parallel.envs import concat_envs
+    total = num_envs * (boxes_per_env + 1) + 8
+    cap = max(1024, -(-total // 1024) * 1024)
+    y_bands = 8 if num_envs >= 64 else 1
+    x_count = -(-num_envs // y_bands)
+    span = 1.0
+    while span < x_count * 80.0 + 256.0:
+        span *= 2.0
+    banded = y_bands > 1
+    cfg = SimConfig(
+        max_bodies=cap,
+        max_pairs=max(1024, (int(num_envs * boxes_per_env * 3.2) + 511)
+                      // 512 * 512),
+        broadphase="sap", sap_window=96, sap_hits=8, solver_backend="pallas",
+        sweep_band_h=400.0 if banded else 0.0, sweep_band_y0=-200.0,
+        sweep_band_span=span if banded else 0.0)
+    mega, _, _ = concat_envs(
+        [scenes.pile(cfg, boxes_per_env, seed=s, ground_half=30.0)
+         for s in range(num_envs)],
+        cfg, band_width=80.0, y_bands=y_bands, band_height=400.0)
+    return cfg, mega.build()
+
+
+def _bound_sweep(args, num: int) -> dict:
+    """The least time for K4 on ``args``: the rows its sweeps touch, those
+    below ``nact`` (every padded row in the segmented layout, where nact =
+    npad), read once (16 B of AABB, 4 of dyn, 4 of order, 8 of true x
+    where given), ``nact`` read and the ``num`` pairs and three counters
+    written once, over HBM's rate.  Its compares are a few a row visit, far
+    below the bytes' time.  Also counts the sweeps (starter rows)."""
+    nact = int(args["nact"])
+    K = args["slab_stride"]
+    row = 16 + 4 + 4 + (8 if args["truex"] is not None else 0)
+    nbytes = nact * row + 4 + 2 * num * 4 + 3 * 4
+    sweeps = sum(max(0, min(K, nact - s * K)) for s in range(args["n_slabs"]))
+    return dict(bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                bytes=nbytes, rows_read=nact, sweeps=sweeps)
+
+
+def _sweep_device_ms(args, reps: int) -> dict:
+    """K4's device time alone: its two launches and the prefix sum between
+    them on buffers made beforehand, then the whole wrapper, each ``reps``
+    times, all queued behind a ~100 ms sleep kernel so that the CUDA
+    events around them time device work, not the host's pace
+    (``device_only`` says whether the host's enqueue did finish inside
+    the sleep).  Returns ms per call."""
+    import torch
+    from phyx_tpu_torch.kernels.sweep_tiled import count_pass, emit_pass
+    a = tuple(args[k] for k in ("rows", "dyn", "order", "nact", "max_pairs",
+                                "n_slabs", "slab_stride", "window_rows",
+                                "truex"))
+    dev = args["rows"].device
+    n = args["n_slabs"] * args["slab_stride"]
+    counts = torch.empty((n,), dtype=torch.int32, device=dev)
+    ends = torch.empty((n,), dtype=torch.int64, device=dev)
+    ovf_window = torch.zeros((1,), dtype=torch.int32, device=dev)
+    pi, pj = (torch.empty((args["max_pairs"],), dtype=torch.int32,
+                          device=dev) for _ in range(2))
+    wrapper = _wrappers()["K4"]
+
+    def passes():
+        count_pass(*a, counts, ovf_window)
+        torch.cumsum(counts, 0, dtype=torch.int64, out=ends)
+        emit_pass(*a, counts, ends, pi, pj)
+
+    passes()
+    wrapper(**args)             # warm-up
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+          for _ in range(reps)]
+    whole = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    _sync()
+    sleep = torch.cuda.Event(enable_timing=True)
+    sleep.record()
+    torch.cuda._sleep(200_000_000)
+    t0 = time.perf_counter()
+    for e in ev:
+        e[0].record()
+        count_pass(*a, counts, ovf_window)
+        e[1].record()
+        torch.cumsum(counts, 0, dtype=torch.int64, out=ends)
+        e[2].record()
+        emit_pass(*a, counts, ends, pi, pj)
+        e[3].record()
+    whole[0].record()
+    for _ in range(reps):
+        wrapper(**args)
+    whole[1].record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    _sync()
+    split = [sum(e[i].elapsed_time(e[i + 1]) for e in ev) / reps
+             for i in range(3)]
+    return dict(count_ms=split[0], scan_ms=split[1], emit_ms=split[2],
+                device_ms=sum(split),
+                wrapper_device_ms=whole[0].elapsed_time(whole[1]) / reps,
+                device_only=host_ms < sleep.elapsed_time(ev[0][0]))
+
+
+# the reference's settled 1024-env row E (BASELINE.md:26 and :94, TPU v5e):
+# a sanity band for the per-env physics, not a target
+REF_E = dict(contacts_per_env=823080 / 1024, penetration_ratio=0.025)
+ENVS = 128
+
+
+def phase_envs128(card: str) -> dict:
+    """Bench row E at 128 envs x 256 boxes: ``broadphase="sap"`` above the
+    reference's sweep budget takes K4, the capacity the tiled tier and K3,
+    once a frame each; then K4 and K3 against their plain versions at the
+    settled frame, and timed."""
+    from phyx_tpu_torch.broadphase import _sap_tiled_sort_stage, compute_aabbs
+    from phyx_tpu_torch.step import solve_inputs
+    st, cfg, out = _drive("envs", ENVS * 256, 240, ("K3", "K4"), card,
+                          built=_envs_scene(ENVS, 256))
+    pen_ratio = out["max_penetration"] / 0.5
+    ovf = {k: out[k] for k in ("pair_overflow", "ovf_window", "ovf_slots",
+                               "ovf_drop", "ovf_band", "ovf_slab")}
+    # bench.py's bar for envs: no overflow, penetration <= 0.2 of the half
+    if (out["num_contacts"] <= 0 or any(ovf.values())
+            or not pen_ratio <= 0.2):
+        raise AssertionError(f"{ENVS}-env bar missed: contacts "
+                             f"{out['num_contacts']}, overflow {ovf}, "
+                             f"penetration ratio {pen_ratio}")
+    st, stages = _stage_ms(st, cfg, frames=3)
+    lo, hi = compute_aabbs(st.bodies)
+    args = _sap_tiled_sort_stage(st.bodies, cfg, lo, hi)[0]
+    err, counts, plain_ms = _compare_sweep(args)
+    bound = _bound_sweep(args, counts["num"])
+    print(f"# compare: K4 == plain at the settled {ENVS}-env frame "
+          f"({bound['sweeps']} sweeps over {bound['rows_read']} of "
+          f"{args['rows'].shape[1]} rows, {args['n_slabs']} slabs of "
+          f"{args['slab_stride']}, window {args['window_rows']}, budget "
+          f"{args['max_pairs']}): {counts}", flush=True)
+    # the kernel's device time, and the wrapper's pace as the frame calls it
+    device = _sweep_device_ms(args, reps=20)
+    wrapper_ms = _kernel_ms(_wrappers()["K4"], args, reps=20)
+    # K3 at this frame's shapes, as on the 20k pile: against the plain
+    # version on warm + 1 velocity pass, then timed on all passes
+    k3 = _wrappers()["K3"]
+    k3_args = solve_inputs(st, cfg)
+    if "cum" not in k3_args:
+        raise AssertionError(f"the {ENVS}-env frame did not take the "
+                             "slab-major path")
+    walked = _walked("K3", k3_args)
+    k3_short = dict(k3_args, vel_iters=1, pos_iters=0)
+    k3_err, k3_plain_ms = _compare(k3, k3_short)
+    print(f"# compare: K3 == plain at the settled {ENVS}-env frame ({walked} "
+          f"slots in {k3_args['n_slabs']} slabs, {out['num_contacts']} live "
+          f"contacts), warm + 1 velocity pass; max abs diff {k3_err}",
+          flush=True)
+    k3_ms_short = _kernel_ms(k3, k3_short, reps=5)
+    k3_ms = _kernel_ms(k3, k3_args, reps=3)
+    k3_visits = _bound_slabs(k3_args, walked)["visits"]
+    out.update(metric=f"env-steps/s @ {ENVS} envs x 256 boxes (port, H100 "
+               "path)", env_steps_per_s=out["steps_per_s"] * ENVS,
+               envs=ENVS, contacts_per_env=out["num_contacts"] / ENVS,
+               penetration_ratio=pen_ratio, stage_device_ms=stages,
+               k4_device_ms=device["device_ms"], k4_wrapper_ms=wrapper_ms,
+               k4_emitted=counts["num"], solve_ms_full=k3_ms,
+               solve_share_of_frame=k3_ms / out["frame_ms"],
+               k3_walked_slots=walked,
+               k3_ns_per_visit=k3_ms * 1e6 / k3_visits,
+               reference_fingerprint=REF_E,
+               cut=f"{ENVS} of the reference's 1024 envs")
+    print(json.dumps(out), flush=True)
+    return dict(launches=out["launches"]["K4"], max_abs_err=err,
+                ms=device["device_ms"], plain_ms=plain_ms,
+                emitted=counts["num"], wrapper_ms=wrapper_ms,
+                **{k: device[k] for k in ("count_ms", "scan_ms", "emit_ms",
+                                          "wrapper_device_ms",
+                                          "device_only")},
+                **bound,
+                k3=dict(launches_envs=out["launches"]["K3"],
+                        max_abs_err_envs_frame=k3_err,
+                        ms_envs_frame=k3_ms_short,
+                        plain_ms_envs_frame=k3_plain_ms,
+                        bound_ms_envs_frame=_bound_slabs(
+                            k3_short, walked)["bound_ms"],
+                        ms_full_solve_envs_frame=k3_ms,
+                        walked_slots_envs_frame=walked))
+
+
 def _row(name, source, replaces, k, timed, **extra) -> dict:
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "ms_full_solve", "bound_ms_full_solve",
@@ -752,6 +1106,7 @@ def main() -> int:
     phase_build()
     small = phase_compare()
     tiled = phase_compare_tiled()
+    sweep_small = phase_compare_sweep()
     phase_step_parity()
     if quick:
         return 0
@@ -759,6 +1114,7 @@ def main() -> int:
     chain = phase_chain(card)
     pile1k = phase_pile1k(card)
     pile20k = phase_pile20k(card)
+    envs = phase_envs128(card)
     passes = "warm + 1 velocity + 1 displacement pass"
     k3, k5 = pile20k["k3"], pile20k["k5"]
     # the tiled kernels on the small frames (all passes, ungated)
@@ -788,16 +1144,33 @@ def main() -> int:
              "phyx_tpu/kernels/contact_solver_tiled2.py:68", k3,
              "warm + 1 velocity pass at the 20k pile frame",
              **small_tiled["K3"], walked_slots=k3["walked_slots"],
-             contacts=k3["contacts"]),
+             contacts=k3["contacts"], **envs["k3"]),
         _row("contact_solver_tiled (K5)",
              "phyx_tpu_torch/csrc/contact_solver_tiled.cu",
              "phyx_tpu/kernels/contact_solver_tiled.py:57", k5,
              "warm + 1 velocity pass at the 20k pile frame's routed rows",
              **small_tiled["K5"], walked_slots=k5["walked_slots"],
              small_frame=tiled["K5"]["frame"]),
+        dict(name="sweep_tiled (K4)", route="cuda",
+             source="phyx_tpu_torch/csrc/sweep_tiled.cu",
+             replaces="phyx_tpu/kernels/sweep.py:114",
+             **{key: envs[key] for key in ("launches", "max_abs_err", "ms",
+                                           "plain_ms", "bound_ms",
+                                           "bound_by")},
+             library_ms=None,
+             timed="the settled 128-env frame, device time of the two "
+                   "launches and the prefix sum",
+             **{f"{key}_small_frames": sweep_small[key] for key in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms")},
+             **{key: envs[key] for key in (
+                 "count_ms", "scan_ms", "emit_ms", "wrapper_ms",
+                 "wrapper_device_ms", "device_only", "sweeps", "rows_read",
+                 "bytes")},
+             emitted_pairs=envs["emitted"]),
     ]
     for k in kernels:
-        k["max_abs_err"] = max(k["max_abs_err"], k["max_abs_err_small_frames"])
+        k["max_abs_err"] = max(k["max_abs_err"], k["max_abs_err_small_frames"],
+                               k.get("max_abs_err_envs_frame", 0.0))
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched on its path")
         if not all(math.isfinite(k[key]) for key in ("ms", "plain_ms",

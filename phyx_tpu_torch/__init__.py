@@ -6,15 +6,18 @@ counterpart, and never imports jax or ``phyx_tpu``.  Plain stages are torch
 operations; the serial solve is CUDA written for Hopper (``csrc/``, built
 at first use), in a fused form (state in shared memory), a streamed form
 (state in device memory) and two slab-ordered tiled forms (the x-rank
-embedded body table in device memory).
+embedded body table in device memory), and so is the mega-scene
+broadphase's slab-windowed sweep.
 
 Ported so far: ``SimConfig``, the state records, the scenes (piles, stack,
-pyramid, avalanche, and the jointed chain, bridge and net), the grid and
-all-pairs broadphases with the grid's slab-major finalize, jointed-pair
-exclusion, narrowphase, the contact cache, solver and joint prepare, the
-four solve kernels, ``step`` and ``rollout`` — for
-``solver_backend="pallas"`` and ``"pallas_tiled"``.  Entry points put
-state on the card unless the caller names another device.
+pyramid, avalanche, and the jointed chain, bridge and net), batched envs
+as one mega-scene (``parallel.envs.concat_envs``), the grid, tiled-sweep
+and all-pairs broadphases with banded and segmented sweep keys and the
+slab-major finalize, jointed-pair exclusion, narrowphase, the contact
+cache, solver and joint prepare, the five kernels, ``step`` and
+``rollout`` — for ``solver_backend="pallas"`` and ``"pallas_tiled"``.
+Entry points put state on the card unless the caller names another
+device.
 
     from phyx_tpu_torch import SimConfig, scenes
     from phyx_tpu_torch.step import step, rollout

@@ -3,15 +3,22 @@
 
 * ``sap_grid``: sort bodies by AABB min-x, test every body against its
   ``sap_window`` forward neighbours with per-body hit slots, and compact the
-  hits into the fixed ``max_pairs`` buffer.  ``sap`` and ``sap_window`` map
-  here too: the reference's own dispatch says the grid dominates the
-  windowed sweep with the same window semantics.
+  hits into the fixed ``max_pairs`` buffer.  ``sap_window`` maps here too:
+  the reference's own dispatch says the grid dominates the windowed sweep
+  with the same window semantics.
+* ``sap_tiled``: the slab-windowed sweep of kernel K4
+  (``kernels/sweep_tiled.py``) over the x-sorted bodies, each sweep walking
+  until its x-interval closes.
+* ``sap``: the reference's auto choice (``broadphase``).
 * ``n2``: masked all-pairs upper triangle — exact, the test ground truth.
 
-Both emit pairs sorted lexicographically by ``(pi, pj)`` with EMPTY slots
+The sweeps take banded x-keys where ``cfg.sweep_band_h`` is set
+(``banded_x``: each y-band of a mega-scene sweeps in its own x region),
+sorted per band where the band layout is static (``segmented_order``).
+All emit pairs sorted lexicographically by ``(pi, pj)`` with EMPTY slots
 last, and count what a budget truncated (``ovf_*``) instead of dropping it
 silently.  Where the configuration runs the tiled solve (``tiling``), the
-grid instead finalizes slab-major: pairs ordered (slab, pi, pj), with the
+sweeps instead finalize slab-major: pairs ordered (slab, pi, pj), with the
 routing the tiled solve reads attached (``TiledRouting``).  Nothing here
 reads a value back to the host.
 """
@@ -20,13 +27,16 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from phyx_tpu_torch import tiling
 from phyx_tpu_torch.config import SimConfig
+from phyx_tpu_torch.kernels.sweep_tiled import sweep_emit_tiled
 from phyx_tpu_torch.types import EMPTY, Bodies, _record
 
 _EMPTY_KEY = (EMPTY << 32) | EMPTY   # int64 pair key of an EMPTY row
+_INF = float("inf")
 
 
 @_record
@@ -75,6 +85,56 @@ def compute_aabbs(bodies: Bodies):
     hx, hy = bodies.half_extent[:, 0], bodies.half_extent[:, 1]
     e = torch.stack([c * hx + s * hy, s * hx + c * hy], dim=-1)
     return bodies.pos - e, bodies.pos + e
+
+
+def banded_x(lo: torch.Tensor, hi: torch.Tensor, active: torch.Tensor,
+             cfg: SimConfig):
+    """Banded sweep x-keys (``cfg.sweep_band_h``): ``(swx_lo, swx_hi,
+    n_cross, bucket)``.  Each body's x-interval is offset by its y-band
+    (the band of its AABB's low y) times ``sweep_band_span``; the high end
+    is padded by span * 2^-18, which bounds the float32 rounding of the
+    offset add; ``n_cross`` counts the ``active`` bodies whose AABB
+    crosses a band boundary (pairs of such a body can be missed, so the
+    caller counts them into ``ovf_band``); ``bucket`` is the f32 band.
+    The same float32 operations in the same order as the reference, so the
+    keys are equal to the bit.  Without bands: the true x-interval, 0."""
+    if cfg.sweep_band_h <= 0.0:
+        return (lo[:, 0], hi[:, 0],
+                torch.zeros((), dtype=torch.int32, device=lo.device),
+                torch.zeros_like(lo[:, 0]))
+    # Python floats holding float32 values: each op rounds as float32
+    inv_h = float(np.float32(1.0 / cfg.sweep_band_h))
+    y0 = float(np.float32(cfg.sweep_band_y0))
+    span = np.float32(cfg.sweep_band_span)
+    b_lo = torch.floor((lo[:, 1] - y0) * inv_h)
+    b_hi = torch.floor((hi[:, 1] - y0) * inv_h)
+    n_cross = (active & (b_lo != b_hi)).sum(dtype=torch.int32)
+    off = b_lo * float(span)
+    pad = float(span * np.float32(2.0 ** -18))
+    return lo[:, 0] + off, hi[:, 0] + off + pad, n_cross, b_lo
+
+
+def segmented_order(keys: torch.Tensor, cfg: SimConfig) -> torch.Tensor:
+    """The per-band sort of banded keys on the static band layout
+    (``cfg.sweep_band_rows``/``_n``/``_cols``, as ``concat_envs`` lays
+    out envs: env e holds rows [e·R, (e+1)·R), its y-band is e % B).  The
+    (X, B, R) head rows are transposed to (B, X·R), each band row sorted
+    stably, and the tail rows follow in index order.  While every body sits
+    in its home band this is the flat stable argsort of the keys (band key
+    ranges are disjoint); a body that left its band stays in its home
+    segment, and the callers count it into ``ovf_band``.  Returns the
+    (N,) int32 order (body id at rank r)."""
+    R, B, X = cfg.sweep_band_rows, cfg.sweep_band_n, cfg.sweep_band_cols
+    n = keys.shape[0]
+    head = X * B * R
+    if head > n:
+        raise ValueError(f"band layout of {head} rows exceeds {n} bodies")
+    ids = torch.arange(n, dtype=torch.int64, device=keys.device)
+    kt = keys[:head].reshape(X, B, R).transpose(0, 1).reshape(B, X * R)
+    it = ids[:head].reshape(X, B, R).transpose(0, 1).reshape(B, X * R)
+    perm = torch.sort(kt, dim=1, stable=True).indices
+    return torch.cat([torch.gather(it, 1, perm).reshape(-1),
+                      ids[head:]]).to(torch.int32)
 
 
 def pair_keys(pi: torch.Tensor, pj: torch.Tensor) -> torch.Tensor:
@@ -197,17 +257,15 @@ def broadphase_sap_grid(bodies: Bodies, cfg: SimConfig,
     sorted columns, a cumulative count along d gives each hit its slot,
     and the hits below ``sap_hits`` scatter into place — the same buffer.
     Hits beyond the slots count into ``ovf_slots``; windows still x-open
-    at offset w count into ``ovf_window``.
+    at offset w count into ``ovf_window``.  With banded keys the x-columns
+    are the banded intervals, a hit also needs the true x-intervals to
+    overlap, and band-boundary crossers count into ``ovf_band``.
 
     ``emit_routing``: finalize slab-major (``_slab_major``); None emits
     whenever ``cfg.tiled_routing`` is set and the configuration resolves
     to the tiled solve."""
     n = bodies.capacity
-    n_slabs = tiling.slab_dims(cfg, n)[4]
-    if emit_routing is None:
-        emit_routing = (cfg.tiled_routing and tiling.resolve_tiled(
-            cfg, n, 2 * cfg.max_pairs))
-    emit_routing = emit_routing and tiling.routing_bits_ok(n, n_slabs)
+    emit_routing = _resolve_routing(cfg, n, emit_routing)
     dev = bodies.pos.device
     w = min(cfg.sap_window, n - 1)
     H = min(cfg.sap_hits, w)
@@ -218,13 +276,13 @@ def broadphase_sap_grid(bodies: Bodies, cfg: SimConfig,
         bodies, lo, hi, dynamic, k_long)
 
     sweep_act = bodies.active & ~is_long
-    keys = torch.where(sweep_act, lo[:, 0],
-                       torch.full_like(lo[:, 0], float("inf")))
+    swx_lo, swx_hi, n_cross, _ = banded_x(lo, hi, sweep_act, cfg)
+    keys = torch.where(sweep_act, swx_lo, torch.full_like(swx_lo, _INF))
     # stable, as lax.sort: equal keys (and the +inf parked bodies) keep
     # index order
     order = torch.sort(keys, stable=True).indices
-    sxlo, sylo = lo[order, 0], lo[order, 1]
-    sxhi, syhi = hi[order, 0], hi[order, 1]
+    sxlo, sylo = swx_lo[order], lo[order, 1]
+    sxhi, syhi = swx_hi[order], hi[order, 1]
     sact, sdyn = sweep_act[order], dynamic[order]
     order = order.to(torch.int32)
 
@@ -236,12 +294,14 @@ def broadphase_sap_grid(bodies: Bodies, cfg: SimConfig,
         # (w, n) view: row d holds x_p[d + 1 : d + 1 + n]
         return x_p.unfold(0, n, 1)[1:w + 1]
 
-    inf = float("inf")
-    xlo_p = padded(sxlo, inf)
+    xlo_p = padded(sxlo, _INF)
     act_p = padded(sact, False)
-    ok = ((windows(xlo_p) <= sxhi) & (windows(padded(sylo, inf)) <= syhi)
-          & (sylo <= windows(padded(syhi, -inf))) & sact
+    ok = ((windows(xlo_p) <= sxhi) & (windows(padded(sylo, _INF)) <= syhi)
+          & (sylo <= windows(padded(syhi, -_INF))) & sact
           & windows(act_p) & (sdyn | windows(padded(sdyn, False))))
+    if cfg.sweep_band_h > 0.0:
+        # the true-x accept: the pad of the banded keys walks, never emits
+        ok &= windows(padded(lo[order, 0], _INF)) <= hi[order, 0]
     # target body ids of offset d: a contiguous slice of the permutation
     jid = windows(padded(order, -1))
 
@@ -264,35 +324,52 @@ def broadphase_sap_grid(bodies: Bodies, cfg: SimConfig,
     pj = torch.cat([torch.maximum(src_id, tgt).reshape(-1), d_pj.reshape(-1)])
     vv = torch.cat([(tgt >= 0).reshape(-1), d_valid.reshape(-1)])
     pairs = _finish(pi, pj, vv, cfg.max_pairs, ovf_window=missed,
-                    ovf_slots=dropped)
-    return _slab_major(pairs, bodies, lo, cfg) if emit_routing else pairs
+                    ovf_slots=dropped, ovf_band=n_cross)
+    return _slab_major(pairs, bodies, rank_order(bodies, lo, hi, cfg),
+                       cfg) if emit_routing else pairs
 
 
-def _routing_rank_sort(bodies: Bodies, lo: torch.Tensor):
-    """The tiled solve's body ranking: a stable sort of
-    where(active, min x, inf).  It ranks every active body, the ``k_long``
-    widest included (the sweep parks those at +inf, the embedding keeps
-    their true x-rank).  Returns (order (N,) int32, ranked_cols (N, 5):
-    [vx, vy, w, inv_mass, inv_inertia] in rank order)."""
-    keys = torch.where(bodies.active, lo[:, 0],
-                       torch.full_like(lo[:, 0], float("inf")))
-    order = torch.sort(keys, stable=True).indices
-    cols = torch.stack([bodies.vel[:, 0], bodies.vel[:, 1], bodies.angvel,
-                        bodies.inv_mass, bodies.inv_inertia], dim=1)
-    return order.to(torch.int32), cols[order]
+def _resolve_routing(cfg: SimConfig, n: int,
+                     emit_routing: Optional[bool]) -> bool:
+    """Whether a sweep finalizes slab-major: ``emit_routing``, where None
+    means whenever ``cfg.tiled_routing`` is set and the configuration
+    resolves to the tiled solve; never where (slab, pi) would not pack."""
+    if emit_routing is None:
+        emit_routing = (cfg.tiled_routing and tiling.resolve_tiled(
+            cfg, n, 2 * cfg.max_pairs))
+    return emit_routing and tiling.routing_bits_ok(
+        n, tiling.slab_dims(cfg, n)[4])
 
 
-def _slab_major(pairs: Pairs, bodies: Bodies, lo: torch.Tensor,
+def rank_order(bodies: Bodies, lo: torch.Tensor, hi: torch.Tensor,
+               cfg: SimConfig) -> torch.Tensor:
+    """The tiled solves' body ranking (the reference's
+    ``_routing_rank_sort`` and K5's ``xorder``): a stable sort of
+    where(active, banded min x, inf), per band on a static band layout
+    (``segmented_order``).  It ranks every active body, the ``k_long``
+    widest included (the sweeps park those at +inf, the embedding keeps
+    their true x-rank).  Returns the (N,) int32 order."""
+    swx_lo, _, _, _ = banded_x(lo, hi, bodies.active, cfg)
+    keys = torch.where(bodies.active, swx_lo, torch.full_like(swx_lo, _INF))
+    if cfg.sweep_band_rows > 0:
+        return segmented_order(keys, cfg)
+    return torch.sort(keys, stable=True).indices.to(torch.int32)
+
+
+def _slab_major(pairs: Pairs, bodies: Bodies, order: torch.Tensor,
                 cfg: SimConfig) -> Pairs:
     """The reference's slab-major finalize (``_finish_slab_major``) on the
     lex-compacted buffer ``_finish`` made (stage 1: on overflow the highest
-    (pi, pj) pairs dropped).  Stage 2 routes the survivors
+    (pi, pj) pairs dropped), with the bodies ranked by ``order``
+    (``rank_order``).  Stage 2 routes the survivors
     (``tiling.route_pairs``, clamps counted into ``ovf_slab``) and orders
     them (slab, pi, pj): the buffer is lex-sorted already, so a stable sort
     on the slab key, EMPTY last, gives that order."""
     n = bodies.capacity
     K, _, _, _, n_slabs, _ = tiling.slab_dims(cfg, n)
-    order, ranked_cols = _routing_rank_sort(bodies, lo)
+    cols = torch.stack([bodies.vel[:, 0], bodies.vel[:, 1], bodies.angvel,
+                        bodies.inv_mass, bodies.inv_inertia], dim=1)
+    ranked_cols = cols[order.to(torch.int64)]
     rank = torch.empty_like(order).index_copy_(
         0, order.to(torch.int64),
         torch.arange(n, dtype=torch.int32, device=order.device))
@@ -319,21 +396,154 @@ def _slab_major(pairs: Pairs, bodies: Bodies, lo: torch.Tensor,
                              pair_cum=pair_cum))
 
 
+def _column(values, m: int, dtype, device) -> torch.Tensor:
+    """(len(values), m): row r filled with values[r], by fills (a tensor
+    made from host values would be a copy that waits for the stream)."""
+    return torch.stack([torch.full((m,), v, dtype=dtype, device=device)
+                        for v in values])
+
+
+def _sap_tiled_sort_stage(bodies: Bodies, cfg: SimConfig, lo: torch.Tensor,
+                          hi: torch.Tensor):
+    """The reference's ``_sap_tiled_sort_stage``: keys, the carried body
+    sort and the padding to the sweep's own slab geometry (K = tile_stride
+    and W = K + max(1024, tile_halo) rounded up to 1024 rows, not
+    ``tiling.slab_dims``).  Returns (K4's arguments, n_cross, the long
+    lane's (d_pi, d_pj, d_valid)).  K4's arguments: ``rows`` (4, npad) f32
+    [xlo, ylo, xhi, yhi] (x banded), ``dyn`` (npad,) int32, ``order``
+    (npad,) int32 body id per row (EMPTY padding), ``nact`` () int32 rows
+    that start sweeps, ``truex`` (2, npad) f32 true [xlo, xhi] with banded
+    keys (else None), ``max_pairs`` rounded up to 1024, ``n_slabs``,
+    ``slab_stride`` K and ``window_rows`` W.
+
+    With a static band layout the sort is per band (``segmented_order``):
+    bodies that are not swept stay inside their segment as empty intervals
+    (lo = +inf, hi = -inf), which end a walk where the next band's keys
+    would, so every padded row may start a sweep (``nact`` = npad); bodies
+    outside their home band and active tail rows, which the segments cannot
+    place, count into ``n_cross``."""
+    n = bodies.capacity
+    dev = bodies.pos.device
+    dynamic = bodies.inv_mass > 0.0
+    d_pi, d_pj, d_valid, is_long = _long_object_lane(
+        bodies, lo, hi, dynamic, min(cfg.sap_long_k, n))
+    sweep_act = bodies.active & ~is_long
+    swx_lo, swx_hi, n_cross, bucket = banded_x(lo, hi, sweep_act, cfg)
+    keys = torch.where(sweep_act, swx_lo, torch.full_like(swx_lo, _INF))
+    # x columns banded, y true, then the true x-interval (exact-x accept)
+    cols = torch.stack([swx_lo, lo[:, 1], swx_hi, hi[:, 1], lo[:, 0],
+                        hi[:, 0]])
+    segmented = cfg.sweep_band_rows > 0
+    if segmented:
+        cols = torch.where(sweep_act, cols, _column(
+            (_INF, _INF, -_INF, -_INF, _INF, -_INF), 1, cols.dtype, dev))
+        order = segmented_order(keys, cfg).to(torch.int64)
+        R, B = cfg.sweep_band_rows, cfg.sweep_band_n
+        head = R * B * cfg.sweep_band_cols
+        ids = torch.arange(n, device=dev)
+        home = torch.div(ids, R, rounding_mode="floor") % B
+        in_head = ids < head
+        n_cross = (n_cross
+                   + (sweep_act & in_head & (bucket != home.float())).sum(
+                       dtype=torch.int32)
+                   + (sweep_act & ~in_head).sum(dtype=torch.int32))
+    else:
+        order = torch.sort(keys, stable=True).indices
+    cols = cols[:, order]
+
+    K = -(-cfg.tile_stride // 1024) * 1024
+    W = K + max(1024, -(-cfg.tile_halo // 1024) * 1024)
+    n_slabs = max(1, -(-n // K))
+    npad = (n_slabs - 1) * K + W        # > n: W >= K + 1024
+
+    def padded(x, fill):
+        return torch.cat([x, _column(fill, npad - n, x.dtype, dev)], 1)
+
+    if segmented:
+        nact = torch.full((), npad, dtype=torch.int32, device=dev)
+        rows = padded(cols[:4], [_INF, _INF, -_INF, -_INF])
+    else:
+        nact = sweep_act.sum(dtype=torch.int32)
+        rows = padded(cols[:4], [_INF] * 4)
+    sweep = dict(
+        rows=rows,
+        dyn=padded(dynamic[order].to(torch.int32)[None], [0])[0],
+        order=padded(order.to(torch.int32)[None], [EMPTY])[0],
+        nact=nact,
+        truex=(padded(cols[4:], [_INF, -_INF]) if cfg.sweep_band_h > 0.0
+               else None),
+        max_pairs=-(-cfg.max_pairs // 1024) * 1024, n_slabs=n_slabs,
+        slab_stride=K, window_rows=W)
+    return sweep, n_cross, (d_pi, d_pj, d_valid)
+
+
+def broadphase_sap_tiled(bodies: Bodies, cfg: SimConfig,
+                         emit_routing: Optional[bool] = None) -> Pairs:
+    """Sweep & prune through K4 (the reference's ``broadphase_sap_tiled``):
+    every sweep walks the x-sorted rows of its slab's window until its
+    x-interval closes, emitting pairs in sweep order up to the rounded
+    budget (``ovf_drop`` past it, ``ovf_window`` where a window ended
+    first); the long lane is concatenated, and ``_finish`` compacts the
+    buffer, slab-major (``_slab_major``, with ``rank_order``) where
+    ``emit_routing`` resolves true (None: as the grid)."""
+    n = bodies.capacity
+    emit_routing = _resolve_routing(cfg, n, emit_routing)
+    lo, hi = compute_aabbs(bodies)
+    sweep, n_cross, (d_pi, d_pj, d_valid) = _sap_tiled_sort_stage(
+        bodies, cfg, lo, hi)
+    ppi, ppj, num_k, ovf_d, ovf_w = sweep_emit_tiled(**sweep)
+    # K4 writes only the slots below num
+    live = torch.arange(sweep["max_pairs"], dtype=torch.int32,
+                        device=ppi.device) < num_k
+    a = torch.where(live, ppi, EMPTY)
+    b = torch.where(live, ppj, EMPTY)
+    pi = torch.cat([torch.minimum(a, b), d_pi.reshape(-1)])
+    pj = torch.cat([torch.maximum(a, b), d_pj.reshape(-1)])
+    valid = torch.cat([live, d_valid.reshape(-1)])
+    pairs = _finish(pi, pj, valid, cfg.max_pairs, ovf_window=ovf_w,
+                    ovf_drop=ovf_d, ovf_band=n_cross)
+    if not emit_routing:
+        return pairs
+    return _slab_major(pairs, bodies, rank_order(bodies, lo, hi, cfg), cfg)
+
+
+# the reference's SMEM budget for its sweep kernels (broadphase.py:975-1003)
+SWEEP_SMEM_BUDGET = 900 * 1024
+
+
+def sweep_kernel_smem_bytes(n: int, max_pairs: int) -> int:
+    """SMEM of the reference's ``sweep_emit``: the AABBs, order and dyn of
+    ``n`` bodies, the pair buffer and counters.  It decides which function
+    ``broadphase="sap"`` computes, not what fits on the card."""
+    return 4 * (6 * n + 2 * max_pairs + 8)
+
+
 def broadphase(bodies: Bodies, cfg: SimConfig,
                tiled_routing: Optional[bool] = None) -> Pairs:
-    """Dispatch on ``cfg.broadphase``.  ``tiled_routing``: the grid's
-    slab-major finalize, None = whenever the configuration runs the tiled
-    solve, False = never (jointed scenes: the jointed-pair exclusion
-    re-sorts the buffer).  The sweep kernels of the reference are not
-    ported yet (ROADMAP K4, K6, K7), nor banded sweep keys (M12)."""
-    if cfg.sweep_band_h > 0.0:
-        raise NotImplementedError(
-            "banded sweep keys (sweep_band_h > 0) are not ported yet: "
-            "ROADMAP M12")
-    if cfg.broadphase == "n2":
+    """Dispatch on ``cfg.broadphase``, branch for branch as the reference
+    (``phyx_tpu/broadphase.py`` ``broadphase``).  ``"sap"`` is its auto
+    choice: K4 under ``pallas_tiled``, and under ``pallas`` above the sweep
+    budget (``sweep_kernel_smem_bytes``); the grid under ``xla``.  The
+    emission kernels K6/K7 (``sap_kernel``, and ``sap`` under ``pallas``
+    within the budget) are not ported yet (ROADMAP M14).
+    ``tiled_routing``: the sweeps' slab-major finalize, None = whenever the
+    configuration runs the tiled solve, False = never (jointed scenes: the
+    jointed-pair exclusion re-sorts the buffer)."""
+    name = cfg.broadphase
+    if name == "n2":
         return broadphase_n2(bodies, cfg)
-    if cfg.broadphase in ("sap", "sap_window", "sap_grid"):
+    if name in ("sap_grid", "sap_window"):
         return broadphase_sap_grid(bodies, cfg, emit_routing=tiled_routing)
-    raise NotImplementedError(
-        f"broadphase={cfg.broadphase!r} runs a sweep kernel that is not "
-        "ported yet: ROADMAP K4 (sap_tiled), K6/K7 (sap_kernel)")
+    tiled = name == "sap_tiled" or (name == "sap" and (
+        cfg.solver_backend == "pallas_tiled"
+        or (cfg.solver_backend == "pallas" and sweep_kernel_smem_bytes(
+            bodies.capacity, cfg.max_pairs) > SWEEP_SMEM_BUDGET)))
+    if tiled:
+        return broadphase_sap_tiled(bodies, cfg, emit_routing=tiled_routing)
+    if name == "sap_kernel" or cfg.solver_backend == "pallas":
+        raise NotImplementedError(
+            f"broadphase={name!r} with solver_backend="
+            f"{cfg.solver_backend!r} at {bodies.capacity} bodies runs the "
+            "sweep emission kernels K6/K7, which are not ported yet: "
+            "ROADMAP M14")
+    return broadphase_sap_grid(bodies, cfg, emit_routing=tiled_routing)

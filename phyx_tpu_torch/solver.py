@@ -23,7 +23,7 @@ import torch
 
 from phyx_tpu_torch import math2d as m2
 from phyx_tpu_torch import tiling
-from phyx_tpu_torch.broadphase import TiledRouting, compute_aabbs
+from phyx_tpu_torch.broadphase import TiledRouting
 from phyx_tpu_torch.config import SimConfig
 from phyx_tpu_torch.kernels.contact_solver import solve_contacts_fused
 from phyx_tpu_torch.kernels.contact_solver_streamed import \
@@ -256,15 +256,6 @@ def solve_pallas_tiled2(bodies: Bodies, contacts: Contacts,
     return (_unembed_bodies(bodies, body_out, routing.order, cfg),
             torch.where(live, acc[:, 0], 0.0),
             torch.where(live, acc[:, 1], 0.0), res[0])
-
-
-def x_order(bodies: Bodies) -> torch.Tensor:
-    """The routed tiled solve's body ranking: a stable argsort of
-    where(active, min x, inf) (the reference's unbanded ``xorder``)."""
-    lo, _ = compute_aabbs(bodies)
-    keys = torch.where(bodies.active, lo[:, 0],
-                       torch.full_like(lo[:, 0], float("inf")))
-    return torch.sort(keys, stable=True).indices.to(torch.int32)
 
 
 def _route_rows(slab, live, n_slabs: int, cap: int, cap_all: int,

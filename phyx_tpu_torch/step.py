@@ -3,7 +3,7 @@
 One frame, with no host round-trip:
 
     integrate velocities (gravity)
-    -> broadphase (grid sweep & prune, static shapes)
+    -> broadphase (grid or K4 sweep & prune, static shapes)
     -> jointed-pair exclusion
     -> narrowphase (batched SAT + clip)
     -> contact-cache join (warm-start impulses carried across frames)
@@ -37,7 +37,8 @@ import torch
 
 from phyx_tpu_torch import math2d as m2
 from phyx_tpu_torch import solver, tiling
-from phyx_tpu_torch.broadphase import Pairs, broadphase, lex_sort_pairs
+from phyx_tpu_torch.broadphase import (Pairs, broadphase, compute_aabbs,
+                                       lex_sort_pairs, rank_order)
 from phyx_tpu_torch.cache import build_cache, lex_join, warm_start_from_cache
 from phyx_tpu_torch.config import SimConfig
 from phyx_tpu_torch.joints import prepare_joint_rows
@@ -135,8 +136,8 @@ def solve_stage(bodies: Bodies, contacts: Contacts, pairs: Pairs,
             return bodies, accum_n, accum_t, residual, joints, pairs
         (bodies, accum_n, accum_t, residual, ovf,
          joint_accum) = solver.solve_pallas_tiled(
-            bodies, contacts, solver.x_order(bodies), cfg,
-            joints if joints.capacity else None, joint_rows, joint_warm)
+            bodies, contacts, rank_order(bodies, *compute_aabbs(bodies), cfg),
+            cfg, joints if joints.capacity else None, joint_rows, joint_warm)
         pairs = pairs.replace(overflow=pairs.overflow + ovf,
                               ovf_slab=pairs.ovf_slab + ovf)
         if joints.capacity:
@@ -253,8 +254,9 @@ def solve_inputs(state: State, cfg: SimConfig, path=None) -> dict:
         return solver.pack_tiled2(bodies, contacts, pairs.routing, cfg)
     joints = state.joints if state.joints.capacity else None
     if path == "tiled":
-        return solver.pack_tiled(bodies, contacts, solver.x_order(bodies),
-                                 cfg, joints, joint_rows, joint_warm)[0]
+        return solver.pack_tiled(
+            bodies, contacts, rank_order(bodies, *compute_aabbs(bodies), cfg),
+            cfg, joints, joint_rows, joint_warm)[0]
     compacted, _, num_live = compact_contacts(contacts)
     return solver.pack_rows(bodies, compacted, num_live, cfg, state.joints,
                             joint_rows, joint_warm)

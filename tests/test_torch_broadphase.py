@@ -95,14 +95,14 @@ def test_n2_drop_keeps_lowest_pairs():
 
 
 def test_unported_paths_raise():
+    """The sweep emission kernels K6/K7: ``sap_kernel``, and ``sap`` under
+    the pallas backend within the reference's sweep budget."""
     bodies = state_from_numpy(jittered_pile(BASE, 20, 0), "cpu").bodies
-    for name in ("sap_kernel", "sap_tiled"):
-        with pytest.raises(NotImplementedError, match="ROADMAP K"):
-            broadphase(bodies, SimConfig(**BASE, broadphase=name))
-    with pytest.raises(NotImplementedError, match="M12"):
-        broadphase(bodies, SimConfig(**BASE, broadphase="sap_grid",
-                                     sweep_band_h=10.0,
-                                     sweep_band_span=1e3))
+    for name, backend in (("sap_kernel", "xla"), ("sap_kernel", "pallas"),
+                          ("sap", "pallas")):
+        with pytest.raises(NotImplementedError, match="M14"):
+            broadphase(bodies, SimConfig(**BASE, broadphase=name,
+                                         solver_backend=backend))
 
 
 @pytest.mark.parametrize("n_cap", [256, 1 << 16])
