@@ -6,13 +6,15 @@
 Phases; any failure raises and the script exits non-zero:
 
 1. device  — require CUDA; print the card's name and power limit.
-2. build   — build the five kernels from the four sources of
+2. build   — build the seven kernels from the five sources of
              ``phyx_tpu_torch/csrc``, one ``nvcc`` each, started together:
              K1, the streamed solve (state in device memory), K2, the
              fused solve (state in shared memory), in one source K3 and
              K5, the slab-major and the routed tiled solves (the x-rank
-             embedded body table in device memory), and K4, the
-             slab-windowed sweep (count, prefix sum, emit).
+             embedded body table in device memory), K4, the
+             slab-windowed sweep, and in one source K6 and K7, the chunked
+             and the serial sweep emission (each: count, prefix sum,
+             emit).
 3. compare — each solve kernel against the plain torch version on the
              packed solve input of small frames on the card, gates off and
              on: K1 and K2 on a 200-box pile (contacts only), a loaded
@@ -25,11 +27,18 @@ Phases; any failure raises and the script exits non-zero:
              (true-x accept on and off), the same in the segmented layout,
              and numpy-made rows that force ``ovf_window`` and, with a
              small budget, ``ovf_drop``: pairs equal on [0, num), counters
-             equal; K4's device time on the first.  Then the whole step on
-             the card against the step on the CPU: a 60-box pile, a 20-link
-             chain, a loaded bridge, a 150-box tiled pile through K3 and
-             through K5, and an 8-env banded mega-scene through K4 + K3 and
-             through K4 + K5.
+             equal; K4's device time on the first.  K6 and K7 against their
+             plain versions on a 200-box pile frame (cap 1024), numpy-made
+             rows over three chunks with a long static ground and inactive
+             tail rows, and the same at a small budget, where both count
+             ``ovf`` and keep different pairs: the whole buffer, ``num``
+             and ``ovf`` equal; K6's device time on the first.  Then the
+             whole step on the card against the step on the CPU: a 60-box
+             pile, a 20-link chain, a loaded bridge, a 150-box tiled pile
+             through K3 and through K5, an 8-env banded mega-scene through
+             K4 + K3 and through K4 + K5, a 200-box pile under
+             ``sap_kernel`` at cap 512 through K7 + K2, and an 8-env
+             mega-scene under ``sap`` at cap 1024 through K6 + K1.
 4. pile10k — the 10k-box pile at the bench's settings (cap 16,384 bodies,
              32,256 pairs, sap_grid window 192 / 8 hits, 10+6 passes)
              through ``rollout``: a 200-frame settle (the bench's 300,
@@ -39,7 +48,10 @@ Phases; any failure raises and the script exits non-zero:
              kernel; finite state, contacts present, bench.py's quality bar
              met; the device time of the step's stages (CUDA events); K1
              against its plain version at the frame's shapes on fewer
-             passes, gates off and on, and both timed.
+             passes, gates off and on, and both timed; at the settled frame
+             ``broadphase="sap"`` (K6 at cap 16,384) gives the grid's lex
+             buffer, ``num`` and zero counters, and K6 equals its plain
+             version and is timed there.
 5. chain   — the 1000-link revolute chain at bench row C's settings (cap
              1024 bodies, 2048 pairs, 1024 joints, the same broadphase and
              passes): 300-frame settle without host waits, slope timing,
@@ -76,6 +88,20 @@ Phases; any failure raises and the script exits non-zero:
              sum on device behind a sleep kernel, and the wrapper's pace);
              K3 against its plain version at that frame (warm + 1 velocity
              pass) and timed on all passes.
+9. envs64  — bench row E at bench.py's own default of 64 envs x 256 boxes
+             (cap 17,408, 52,736 pairs): ``"sap"`` within the reference's
+             sweep budget takes K6, the capacity the streamed solve K1:
+             240-frame settle without host waits, slope timing, K6 and K1
+             once a frame each and no other kernel; every overflow counter
+             0, penetration ratio <= 0.2, finite state; env-steps/s beside
+             the 128-env scene's; stage times; K6 against its plain version
+             at the settled frame and timed (device time behind a sleep
+             kernel), K1 timed on all passes.
+10. pile500 — a 500-box pile under ``broadphase="sap"`` at bench.py's
+             build() settings (cap 512, 2,048 pairs): K7, the capacity not
+             in whole chunks, and K2: 400-frame settle, slope timing, K7 and
+             K2 once a frame, the 0.6 penetration bar; stage times; K7
+             against its plain version at the settled frame, and timed.
 
 Prints a JSON line per main-path phase (physics, rate, stage times), a
 JSON line of the kernels, the card's ``nvidia-smi`` name and power limit,
@@ -111,10 +137,11 @@ def _wrappers() -> dict:
         solve_contacts_streamed
     from phyx_tpu_torch.kernels.contact_solver_tiled import (
         solve_contacts_tiled, solve_contacts_tiled2)
+    from phyx_tpu_torch.kernels.sweep import sweep_emit, sweep_emit_v2
     from phyx_tpu_torch.kernels.sweep_tiled import sweep_emit_tiled
     return dict(K1=solve_contacts_streamed, K2=solve_contacts_fused,
                 K3=solve_contacts_tiled2, K4=sweep_emit_tiled,
-                K5=solve_contacts_tiled)
+                K5=solve_contacts_tiled, K6=sweep_emit_v2, K7=sweep_emit)
 
 
 def _plains() -> dict:
@@ -123,11 +150,14 @@ def _plains() -> dict:
         solve_contacts_streamed_plain
     from phyx_tpu_torch.kernels.contact_solver_tiled import (
         solve_contacts_tiled2_plain, solve_contacts_tiled_plain)
+    from phyx_tpu_torch.kernels.sweep import (sweep_emit_plain,
+                                              sweep_emit_v2_plain)
     from phyx_tpu_torch.kernels.sweep_tiled import sweep_emit_tiled_plain
     return dict(K1=solve_contacts_streamed_plain,
                 K2=solve_contacts_streamed_plain,
                 K3=solve_contacts_tiled2_plain, K4=sweep_emit_tiled_plain,
-                K5=solve_contacts_tiled_plain)
+                K5=solve_contacts_tiled_plain, K6=sweep_emit_v2_plain,
+                K7=sweep_emit_plain)
 
 
 def _reset_counts():
@@ -160,7 +190,8 @@ def phase_device() -> str:
 def phase_build() -> None:
     import importlib
     from phyx_tpu_torch.kernels import nvcc
-    # one module (and one source) may hold several kernels: K3 and K5
+    # one module (and one source) may hold several kernels: K3 and K5, K6
+    # and K7
     modules = list({w.__module__: importlib.import_module(w.__module__)
                     for w in _wrappers().values()}.values())
     t0 = time.perf_counter()
@@ -444,6 +475,212 @@ def phase_compare_sweep() -> dict:
     return dict(out, max_abs_err=worst)
 
 
+def _emit_rows(n: int, na: int, seed: int, max_pairs: int) -> dict:
+    """tests/test_torch_sweep_emit.py's rows on the card: ``na`` of ``n``
+    active, a long static ground across every chunk (row 0), inactive tail
+    rows sorted last with their real AABBs.  Returns (K6's arguments, K7's
+    arguments)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    spread = 120.0
+    lox = rng.uniform(0.0, spread, n)
+    loy = rng.uniform(0.0, spread / 3.0, n)
+    w = rng.uniform(0.2, 2.0, (n, 2))
+    dyn = (rng.random(n) < 0.8).astype(np.int32)
+    lox[0], loy[0], w[0], dyn[0] = -1.0, -0.5, (spread + 2.0, 1.5), 0
+    aabb = np.stack([lox, loy, lox + w[:, 0], loy + w[:, 1]],
+                    1).astype(np.float32)
+    keys = np.where(np.arange(n) < na, aabb[:, 0], np.inf)
+    order = np.argsort(keys, kind="stable").astype(np.int32)
+
+    def card(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).cuda()
+
+    common = dict(order=card(order), max_pairs=max_pairs,
+                  nact=torch.full((), na, dtype=torch.int32, device="cuda"))
+    return (dict(common, aabb_flat=card(aabb[order].reshape(-1)),
+                 dyn=card(dyn[order])),
+            dict(common, aabb_flat=card(aabb.reshape(-1)), dyn=card(dyn)))
+
+
+def _compare_emit(name: str, args) -> tuple:
+    """K6 or K7 against its plain version on the same CUDA tensors: the
+    whole pair buffer (EMPTY from num on), ``num`` and ``ovf``.  Returns
+    (mismatches, the plain version's counters, its ms, the kept pairs),
+    raising on any mismatch."""
+    got = _wrappers()[name](**args)
+    _sync()
+    t0 = time.perf_counter()
+    ref = _plains()[name](**args)
+    _sync()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(num=int(ref[2]), ovf=int(ref[3]))
+    bad = sum(int(g) != c for g, c in zip(got[2:], counts.values()))
+    bad += sum(int((g != r).sum()) for g, r in zip(got[:2], ref[:2]))
+    if bad:
+        raise AssertionError(f"{name} differs from its plain version: {bad} "
+                             f"mismatches (plain {counts}, kernel "
+                             f"{[int(x) for x in got[2:]]})")
+    num = counts["num"]
+    kept = set(zip(ref[0][:num].tolist(), ref[1][:num].tolist()))
+    return bad, counts, plain_ms, kept
+
+
+def _bound_emit(args, num: int, chunked: bool) -> dict:
+    """The least time for K6 or K7 on ``args``: the ``nact`` rows the sweep
+    touches read once (16 B of AABB, 4 of dyn, 4 of order), ``nact`` read,
+    the ``num`` kept pairs (8 B each) and the two counters written once,
+    over HBM's rate; against the float operations of the serial sweep's
+    candidate tests on these rows (per active row one x test per walked
+    candidate and the closing one; per walked candidate two y compares and
+    the dyn sum and its test) over the card's float32 peak.  The larger
+    bounds it."""
+    import torch
+    nact = int(args["nact"])
+    aabb = args["aabb_flat"].view(-1, 4)
+    if not chunked:
+        aabb = aabb[args["order"][:nact].long()]
+    lox, hix = aabb[:nact, 0], aabb[:nact, 2]
+    # rows walked: those after the row whose lox <= its hix (sorted lox)
+    ends = torch.searchsorted(lox.contiguous(), hix.contiguous(),
+                              right=True)
+    idx = torch.arange(nact, device=lox.device)
+    walked = int(torch.clamp(ends - idx - 1, min=0).sum())
+    nbytes = nact * 24 + 4 + num * 8 + 8
+    ops = nact + walked * 5
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, ops=ops, rows_read=nact, walked=walked)
+
+
+def _split_device_ms(stages, wrapper, args, reps: int) -> dict:
+    """A sweep's device time alone: its launches and the prefix sum
+    between them (``stages``, (name, callable) on buffers made beforehand)
+    each timed on CUDA events, then the whole wrapper on ``args``, each
+    ``reps`` times, all queued behind a ~100 ms sleep kernel so that the
+    events time device work, not the host's pace (``device_only`` says
+    whether the host's enqueue did finish inside the sleep).  Returns ms
+    per call: ``<name>_ms`` per stage, their sum ``device_ms`` and
+    ``wrapper_device_ms``."""
+    import torch
+    for _, fn in stages:
+        fn()
+    wrapper(**args)             # warm-up
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(len(stages)
+                                                              + 1)]
+          for _ in range(reps)]
+    whole = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    _sync()
+    sleep = torch.cuda.Event(enable_timing=True)
+    sleep.record()
+    torch.cuda._sleep(200_000_000)
+    t0 = time.perf_counter()
+    for e in ev:
+        e[0].record()
+        for i, (_, fn) in enumerate(stages):
+            fn()
+            e[i + 1].record()
+    whole[0].record()
+    for _ in range(reps):
+        wrapper(**args)
+    whole[1].record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    _sync()
+    split = {f"{name}_ms": sum(e[i].elapsed_time(e[i + 1]) for e in ev) / reps
+             for i, (name, _) in enumerate(stages)}
+    return dict(split, device_ms=sum(split.values()),
+                wrapper_device_ms=whole[0].elapsed_time(whole[1]) / reps,
+                device_only=host_ms < sleep.elapsed_time(ev[0][0]))
+
+
+def _emit_device_ms(name: str, args, reps: int) -> dict:
+    """K6's or K7's device time alone (``_split_device_ms``): its two
+    launches and the prefix sum on buffers made beforehand, and the whole
+    wrapper (with its EMPTY fills, K6's chunk bounds and the counters);
+    also the wrapper's pace back to back, which the host sets when it
+    exceeds the device time."""
+    import torch
+    from phyx_tpu_torch.kernels.sweep import (cells, chunk_hix, count_pass,
+                                              emit_pass)
+    chunked = name == "K6"
+    a = tuple(args[k] for k in ("aabb_flat", "order", "dyn", "nact"))
+    dev = args["aabb_flat"].device
+    n = cells(args["order"].numel(), chunked)
+    counts = torch.empty((n,), dtype=torch.int32, device=dev)
+    ends = torch.empty((n,), dtype=torch.int64, device=dev)
+    pi, pj = (torch.empty((args["max_pairs"],), dtype=torch.int32,
+                          device=dev) for _ in range(2))
+    hix = chunk_hix(args["aabb_flat"]) if chunked else None
+    wrapper = _wrappers()[name]
+    out = _split_device_ms((
+        ("count", lambda: count_pass(chunked, *a, counts, hix)),
+        ("scan", lambda: torch.cumsum(counts, 0, dtype=torch.int64,
+                                      out=ends)),
+        ("emit", lambda: emit_pass(chunked, *a, counts, ends, pi, pj,
+                                   args["max_pairs"]))),
+        wrapper, args, reps)
+    return dict(out, wrapper_ms=_kernel_ms(wrapper, args, reps=reps))
+
+
+def _emit_at(name: str, args, what: str, chunked: bool) -> dict:
+    """The kernel ``name`` against its plain version on ``args``, timed,
+    with its bound."""
+    err, counts, plain_ms, _ = _compare_emit(name, args)
+    out = dict(max_abs_err=err, plain_ms=plain_ms, emitted=counts["num"],
+               ovf=counts["ovf"], **_emit_device_ms(name, args, reps=20),
+               **_bound_emit(args, counts["num"], chunked))
+    out["ms"] = out.pop("device_ms")
+    print(f"# compare: {name} == plain at {what} ({out['rows_read']} active "
+          f"of {args['order'].numel()} rows, {out['walked']} candidates "
+          f"walked): {counts}; device {out['ms']:.4f} ms a call (count "
+          f"{out['count_ms']:.4f}, scan {out['scan_ms']:.4f}, emit "
+          f"{out['emit_ms']:.4f}; the wrapper {out['wrapper_device_ms']:.4f})"
+          f", bound {out['bound_ms']:.6f} ms", flush=True)
+    return out
+
+
+def phase_compare_emit() -> dict:
+    """K6 and K7 against their plain versions on small inputs on the card:
+    a 200-box pile frame at cap 1024, numpy-made rows over three chunks
+    with a long static ground and inactive tail rows, and the same at a
+    small budget, where both count ``ovf`` and keep different pairs.
+    Returns, per kernel, the max mismatch count and, on the pile frame, its
+    device time, its plain version's and the bound."""
+    from phyx_tpu_torch import SimConfig, scenes
+    from phyx_tpu_torch.broadphase import sap_kernel_inputs
+    from phyx_tpu_torch.step import integrate_velocities, rollout
+    cfg = SimConfig(max_bodies=1024, max_pairs=2048, broadphase="sap_grid",
+                    sap_window=64, solver_backend="pallas")
+    st = rollout(scenes.pile(cfg, 200, seed=0).build(), cfg, 40)
+    bodies = integrate_velocities(st.bodies, cfg)
+    out = {name: _emit_at(name, sap_kernel_inputs(
+        bodies, cfg.max_pairs, name == "K6"), "the 200-box pile frame",
+        name == "K6") for name in ("K6", "K7")}
+    for budget in (16384, 256):
+        k6, k7 = _emit_rows(3072, 2500, 2, budget)
+        kept = {}
+        for name, args in (("K6", k6), ("K7", k7)):
+            err, counts, _, kept[name] = _compare_emit(name, args)
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+            if (counts["ovf"] > 0) != (budget == 256) or counts["num"] < 256:
+                raise AssertionError(f"{name} on the numpy rows, budget "
+                                     f"{budget}: {counts}")
+        which = "different" if kept["K6"] != kept["K7"] else "the same"
+        # both keep every pair below the budget; past it, their orders
+        # keep different ones
+        if (which == "different") != (budget == 256):
+            raise AssertionError(f"K6 and K7 kept {which} pairs at budget "
+                                 f"{budget}")
+        print(f"# compare: K6 == plain, K7 == plain on numpy rows over 3 "
+              f"chunks (2500 active, a static ground, inactive tail), "
+              f"budget {budget}: {counts}; K6 and K7 keep {which} pairs",
+              flush=True)
+    return out
+
+
 def phase_step_parity() -> float:
     """The whole step on the card against the same step on the CPU (whose
     stages the CPU tests hold to the JAX package), re-synced every frame:
@@ -472,23 +709,48 @@ def phase_step_parity() -> float:
         [scenes.pile(envs, 24, seed=s, ground_half=8.0) for s in range(8)],
         envs, band_width=40.0, y_bands=4, band_height=120.0)
     env_state = rollout(mega.build("cpu"), envs, 4)
+    # the emission kernels' steps: tests/test_torch_sweep_emit.py's pile at
+    # cap 512 (K7 + K2), and the 8-env scene under "sap" at cap 1024 with
+    # 16,384 contact slots, past the fused kernel's shared memory (K6 + K1)
+    fast = dict(solver_backend="pallas", velocity_iterations=4,
+                position_iterations=2)
+    k7_pile = SimConfig(max_bodies=512, max_pairs=1024,
+                        broadphase="sap_kernel", **fast)
+    k6_envs = SimConfig(max_bodies=1024, max_pairs=8192, broadphase="sap",
+                        sweep_band_h=120.0, sweep_band_y0=-60.0,
+                        sweep_band_span=256.0, **fast)
+    mega6, _, _ = concat_envs(
+        [scenes.pile(k6_envs, 24, seed=s, ground_half=8.0) for s in range(8)],
+        k6_envs, band_width=40.0, y_bands=4, band_height=120.0)
+    # (what, config, state, the kernels a card step launches once each)
     cases = (
-        ("60-box pile", pile, scenes.pile(pile, 60, seed=1).build("cpu")),
+        ("60-box pile", pile, scenes.pile(pile, 60, seed=1).build("cpu"),
+         ("K2",)),
         ("20-link chain", jointed,
-         scenes.chain(jointed, 20).build("cpu")),
+         scenes.chain(jointed, 20).build("cpu"), ("K2",)),
         ("loaded bridge", jointed, rollout(scenes.bridge(
-            jointed, 8, load_boxes=3).build("cpu"), jointed, 50)),
-        ("150-box tiled pile (K3)", tiled, tiled_pile),
-        ("150-box tiled pile, routed (K5)", routed, tiled_pile),
-        ("8-env mega-scene (K4 + K3)", envs, env_state),
+            jointed, 8, load_boxes=3).build("cpu"), jointed, 50), ("K2",)),
+        ("150-box tiled pile (K3)", tiled, tiled_pile, ("K3",)),
+        ("150-box tiled pile, routed (K5)", routed, tiled_pile, ("K5",)),
+        ("8-env mega-scene (K4 + K3)", envs, env_state, ("K3", "K4")),
         ("8-env mega-scene, routed (K4 + K5)",
-         envs.replace(tiled_routing=False), env_state),
+         envs.replace(tiled_routing=False), env_state, ("K4", "K5")),
+        ("200-box pile, sap_kernel (K7 + K2)", k7_pile, rollout(
+            scenes.pile(k7_pile, 200, seed=0).build("cpu"), k7_pile, 4),
+         ("K2", "K7")),
+        ("8-env mega-scene, sap (K6 + K1)", k6_envs,
+         rollout(mega6.build("cpu"), k6_envs, 4), ("K1", "K6")),
     )
     worst = 0.0
-    for what, cfg, st in cases:
+    for what, cfg, st, kernels in cases:
         for frame in range(10):
+            _reset_counts()
             card = state_to_numpy(step(state_from_numpy(
                 state_to_numpy(st), "cuda"), cfg))
+            launches = _counts()
+            if launches != {k: int(k in kernels) for k in launches}:
+                raise AssertionError(f"{what} frame {frame}: launches "
+                                     f"{launches}")
             st = step(st, cfg)
             host = state_to_numpy(st)
             for rec in ("bodies", "joints", "cache", "stats"):
@@ -722,8 +984,43 @@ def _kernel_at_frame(st, cfg, wrapper, name) -> dict:
                 joints=numj)
 
 
+def _sap_equals_grid(st, cfg) -> dict:
+    """At the frame ``step(st, cfg)`` would run (``cfg`` the grid's), the
+    grid's pairs, whose counters must read 0, against
+    ``broadphase="sap"``'s (K6 at this capacity, launched once): the same
+    lex buffer and ``num``, zero counters.  Then K6 against its plain
+    version on that frame, and timed."""
+    import torch
+    from phyx_tpu_torch.broadphase import broadphase, sap_kernel_inputs
+    from phyx_tpu_torch.step import integrate_velocities
+    names = ("overflow", "ovf_window", "ovf_slots", "ovf_drop", "ovf_band",
+             "ovf_slab")
+    bodies = integrate_velocities(st.bodies, cfg)
+    grid = broadphase(bodies, cfg)
+    _reset_counts()
+    sap = broadphase(bodies, cfg.replace(broadphase="sap"))
+    launches = _counts()
+    if launches != {k: int(k == "K6") for k in launches}:
+        raise AssertionError(f"broadphase 'sap' launches {launches}")
+    counters = {which: {k: int(getattr(p, k)) for k in names}
+                for which, p in (("grid", grid), ("sap", sap))}
+    same = (torch.equal(grid.pi, sap.pi) and torch.equal(grid.pj, sap.pj)
+            and int(grid.num) == int(sap.num))
+    if not same or any(v for c in counters.values() for v in c.values()):
+        raise AssertionError(f"'sap' (K6) against the grid at the settled "
+                             f"frame: buffers equal {same}, counters "
+                             f"{counters}")
+    print(f"# compare: broadphase 'sap' (K6) == the grid at the settled "
+          f"{cfg.max_bodies}-cap frame: {int(sap.num)} pairs, every counter "
+          f"0", flush=True)
+    k6 = _emit_at("K6", sap_kernel_inputs(bodies, cfg.max_pairs, True),
+                  f"the settled {cfg.max_bodies}-cap frame", True)
+    return dict(k6, sap_launches=launches["K6"])
+
+
 def phase_pile10k(card: str) -> dict:
-    """The settled 10k pile through K1, the path of the first slice."""
+    """The settled 10k pile through K1, the path of the first slice; at the
+    settled frame K6 through ``broadphase="sap"`` against the grid."""
     w = _wrappers()
     # settle cut from the bench's 300 frames to keep the script in time
     st, cfg, out = _drive("pile", 10_000, 200, ("K1",), card)
@@ -738,12 +1035,14 @@ def phase_pile10k(card: str) -> dict:
                              f"{pen_ratio}")
     st, stages = _stage_ms(st, cfg, frames=3)
     k = _kernel_at_frame(st, cfg, w["K1"], "K1")
+    k6 = _sap_equals_grid(st, cfg)
     out.update(metric="steps/s @ 10000-box pile (port, H100 path)",
                penetration_ratio=pen_ratio, stage_device_ms=stages,
                solve_ms_full=k["ms_full_solve"],
-               solve_share_of_frame=k["ms_full_solve"] / out["frame_ms"])
+               solve_share_of_frame=k["ms_full_solve"] / out["frame_ms"],
+               k6_device_ms_sap=k6["ms"], k6_pairs_sap=k6["emitted"])
     print(json.dumps(out), flush=True)
-    return dict(k, launches=out["launches"]["K1"])
+    return dict(k, launches=out["launches"]["K1"], k6=k6)
 
 
 def phase_chain(card: str) -> dict:
@@ -854,7 +1153,7 @@ def phase_pile20k(card: str) -> dict:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     _sync()
-    if k5_launches != dict(K1=0, K2=0, K3=0, K4=0, K5=1):
+    if k5_launches != {k: int(k == "K5") for k in k5_launches}:
         raise AssertionError(f"K5 frame launches {k5_launches}")
     k5_diff = (via_k3.bodies.pos - via_k5.bodies.pos).abs().max().item()
     if not (torch.isfinite(via_k5.bodies.pos).all().item()
@@ -948,12 +1247,8 @@ def _bound_sweep(args, num: int) -> dict:
 
 
 def _sweep_device_ms(args, reps: int) -> dict:
-    """K4's device time alone: its two launches and the prefix sum between
-    them on buffers made beforehand, then the whole wrapper, each ``reps``
-    times, all queued behind a ~100 ms sleep kernel so that the CUDA
-    events around them time device work, not the host's pace
-    (``device_only`` says whether the host's enqueue did finish inside
-    the sleep).  Returns ms per call."""
+    """K4's device time alone (``_split_device_ms``): its two launches and
+    the prefix sum on buffers made beforehand, and the whole wrapper."""
     import torch
     from phyx_tpu_torch.kernels.sweep_tiled import count_pass, emit_pass
     a = tuple(args[k] for k in ("rows", "dyn", "order", "nact", "max_pairs",
@@ -966,43 +1261,12 @@ def _sweep_device_ms(args, reps: int) -> dict:
     ovf_window = torch.zeros((1,), dtype=torch.int32, device=dev)
     pi, pj = (torch.empty((args["max_pairs"],), dtype=torch.int32,
                           device=dev) for _ in range(2))
-    wrapper = _wrappers()["K4"]
-
-    def passes():
-        count_pass(*a, counts, ovf_window)
-        torch.cumsum(counts, 0, dtype=torch.int64, out=ends)
-        emit_pass(*a, counts, ends, pi, pj)
-
-    passes()
-    wrapper(**args)             # warm-up
-    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
-          for _ in range(reps)]
-    whole = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-    _sync()
-    sleep = torch.cuda.Event(enable_timing=True)
-    sleep.record()
-    torch.cuda._sleep(200_000_000)
-    t0 = time.perf_counter()
-    for e in ev:
-        e[0].record()
-        count_pass(*a, counts, ovf_window)
-        e[1].record()
-        torch.cumsum(counts, 0, dtype=torch.int64, out=ends)
-        e[2].record()
-        emit_pass(*a, counts, ends, pi, pj)
-        e[3].record()
-    whole[0].record()
-    for _ in range(reps):
-        wrapper(**args)
-    whole[1].record()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    _sync()
-    split = [sum(e[i].elapsed_time(e[i + 1]) for e in ev) / reps
-             for i in range(3)]
-    return dict(count_ms=split[0], scan_ms=split[1], emit_ms=split[2],
-                device_ms=sum(split),
-                wrapper_device_ms=whole[0].elapsed_time(whole[1]) / reps,
-                device_only=host_ms < sleep.elapsed_time(ev[0][0]))
+    return _split_device_ms((
+        ("count", lambda: count_pass(*a, counts, ovf_window)),
+        ("scan", lambda: torch.cumsum(counts, 0, dtype=torch.int64,
+                                      out=ends)),
+        ("emit", lambda: emit_pass(*a, counts, ends, pi, pj))),
+        _wrappers()["K4"], args, reps)
 
 
 # the reference's settled 1024-env row E (BASELINE.md:26 and :94, TPU v5e):
@@ -1020,15 +1284,7 @@ def phase_envs128(card: str) -> dict:
     from phyx_tpu_torch.step import solve_inputs
     st, cfg, out = _drive("envs", ENVS * 256, 240, ("K3", "K4"), card,
                           built=_envs_scene(ENVS, 256))
-    pen_ratio = out["max_penetration"] / 0.5
-    ovf = {k: out[k] for k in ("pair_overflow", "ovf_window", "ovf_slots",
-                               "ovf_drop", "ovf_band", "ovf_slab")}
-    # bench.py's bar for envs: no overflow, penetration <= 0.2 of the half
-    if (out["num_contacts"] <= 0 or any(ovf.values())
-            or not pen_ratio <= 0.2):
-        raise AssertionError(f"{ENVS}-env bar missed: contacts "
-                             f"{out['num_contacts']}, overflow {ovf}, "
-                             f"penetration ratio {pen_ratio}")
+    pen_ratio = _envs_bar(out, ENVS)
     st, stages = _stage_ms(st, cfg, frames=3)
     lo, hi = compute_aabbs(st.bodies)
     args = _sap_tiled_sort_stage(st.bodies, cfg, lo, hi)[0]
@@ -1072,6 +1328,7 @@ def phase_envs128(card: str) -> dict:
                cut=f"{ENVS} of the reference's 1024 envs")
     print(json.dumps(out), flush=True)
     return dict(launches=out["launches"]["K4"], max_abs_err=err,
+                env_steps_per_s=out["env_steps_per_s"],
                 ms=device["device_ms"], plain_ms=plain_ms,
                 emitted=counts["num"], wrapper_ms=wrapper_ms,
                 **{k: device[k] for k in ("count_ms", "scan_ms", "emit_ms",
@@ -1088,6 +1345,106 @@ def phase_envs128(card: str) -> dict:
                         walked_slots_envs_frame=walked))
 
 
+def _envs_bar(out: dict, envs: int) -> float:
+    """bench.py's bar for envs: contacts, no overflow of any cause,
+    penetration <= 0.2 of the box half.  Returns the penetration ratio."""
+    pen_ratio = out["max_penetration"] / 0.5
+    ovf = {k: out[k] for k in ("pair_overflow", "ovf_window", "ovf_slots",
+                               "ovf_drop", "ovf_band", "ovf_slab")}
+    if (out["num_contacts"] <= 0 or any(ovf.values())
+            or not pen_ratio <= 0.2):
+        raise AssertionError(f"{envs}-env bar missed: contacts "
+                             f"{out['num_contacts']}, overflow {ovf}, "
+                             f"penetration ratio {pen_ratio}")
+    return pen_ratio
+
+
+def phase_envs64(card: str, envs128: dict) -> dict:
+    """Bench row E at bench.py's default of 64 envs x 256 boxes:
+    ``broadphase="sap"`` within the reference's sweep budget takes K6, the
+    capacity the streamed solve K1, once a frame each; then K6 against its
+    plain version at the settled frame and timed, and K1 against its
+    plain version there, and timed."""
+    from phyx_tpu_torch.broadphase import sap_kernel_inputs
+    from phyx_tpu_torch.step import integrate_velocities, solve_inputs
+    n_envs = 64
+    st, cfg, out = _drive("envs", n_envs * 256, 240, ("K1", "K6"), card,
+                          built=_envs_scene(n_envs, 256))
+    pen_ratio = _envs_bar(out, n_envs)
+    st, stages = _stage_ms(st, cfg, frames=3)
+    k6 = _emit_at("K6", sap_kernel_inputs(integrate_velocities(
+        st.bodies, cfg), cfg.max_pairs, True),
+        f"the settled {n_envs}-env frame", True)
+    # K1 at this frame's shapes, against the plain version on warm + 1 + 1
+    # passes, then timed on those and on all passes
+    k1 = _wrappers()["K1"]
+    k1_args = solve_inputs(st, cfg)
+    k1_short = dict(k1_args, vel_iters=1, pos_iters=1)
+    k1_err, k1_plain_ms = _compare(k1, k1_short)
+    print(f"# compare: K1 == plain at the settled {n_envs}-env frame "
+          f"({int(k1_args['num_contacts'])} contacts, "
+          f"{k1_args['b1'].numel()} slots), warm + 1 + 1 passes; max abs "
+          f"diff {k1_err}", flush=True)
+    k1_ms_short = _kernel_ms(k1, k1_short, reps=5)
+    k1_ms = _kernel_ms(k1, k1_args, reps=3)
+    k1_visits = _bound(k1_args)["visits"]
+    out.update(metric=f"env-steps/s @ {n_envs} envs x 256 boxes (port, H100 "
+               "path)", env_steps_per_s=out["steps_per_s"] * n_envs,
+               env_steps_per_s_128_envs=envs128["env_steps_per_s"],
+               envs=n_envs, contacts_per_env=out["num_contacts"] / n_envs,
+               penetration_ratio=pen_ratio, stage_device_ms=stages,
+               k6_device_ms=k6["ms"], k6_wrapper_ms=k6["wrapper_ms"],
+               k6_emitted=k6["emitted"], solve_ms_full=k1_ms,
+               solve_share_of_frame=k1_ms / out["frame_ms"],
+               k1_ns_per_visit=k1_ms * 1e6 / k1_visits,
+               reference_fingerprint=REF_E, cut="none (bench.py's default)")
+    print(json.dumps(out), flush=True)
+    return dict(k6, launches=out["launches"]["K6"], k1={
+        "launches_envs64": out["launches"]["K1"],
+        "max_abs_err_envs64": k1_err, "ms_envs64": k1_ms_short,
+        "plain_ms_envs64": k1_plain_ms,
+        "bound_ms_envs64": _bound(k1_short)["bound_ms"],
+        "ms_full_solve_envs64": k1_ms,
+        "ns_per_visit_envs64": k1_ms * 1e6 / k1_visits,
+        "contacts_envs64": int(k1_args["num_contacts"])})
+
+
+def phase_pile500(card: str) -> dict:
+    """A 500-box pile under ``broadphase="sap"`` (bench.py's build()
+    settings: cap 512, 2,048 pairs): K7, since 512 rows are no whole chunk,
+    and K2 once a frame; then K7 against its plain version at the settled
+    frame, and timed, and K2 against its plain version there, and
+    timed."""
+    from phyx_tpu_torch import scenes
+    from phyx_tpu_torch.broadphase import sap_kernel_inputs
+    from phyx_tpu_torch.step import integrate_velocities
+    cfg = _bench_cfg("pile", 500).replace(broadphase="sap")
+    st, cfg, out = _drive("pile", 500, 400, ("K2", "K7"), card, built=(
+        cfg, scenes.pile(cfg, 500, seed=0).build()))
+    pen_ratio = out["max_penetration"] / 0.5
+    if (out["num_contacts"] <= 0 or out["pair_overflow"] != 0
+            or not pen_ratio <= 0.6):
+        raise AssertionError(f"500-box pile bar missed: contacts "
+                             f"{out['num_contacts']}, overflow "
+                             f"{out['pair_overflow']}, penetration ratio "
+                             f"{pen_ratio}")
+    st, stages = _stage_ms(st, cfg, frames=3)
+    k7 = _emit_at("K7", sap_kernel_inputs(integrate_velocities(
+        st.bodies, cfg), cfg.max_pairs, False),
+        "the settled 500-box frame", False)
+    k2 = _kernel_at_frame(st, cfg, _wrappers()["K2"], "K2")
+    out.update(metric="steps/s @ 500-box pile, broadphase sap (port, H100 "
+               "path)", penetration_ratio=pen_ratio, stage_device_ms=stages,
+               k7_device_ms=k7["ms"], k7_wrapper_ms=k7["wrapper_ms"],
+               k7_emitted=k7["emitted"])
+    print(json.dumps(out), flush=True)
+    return dict(k7, launches=out["launches"]["K7"], k2=dict(
+        launches_pile500=out["launches"]["K2"], **{
+            f"{key}_pile500": k2[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "ms_full_solve",
+                "ns_per_visit", "contacts")}))
+
+
 def _row(name, source, replaces, k, timed, **extra) -> dict:
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "ms_full_solve", "bound_ms_full_solve",
@@ -1095,6 +1452,23 @@ def _row(name, source, replaces, k, timed, **extra) -> dict:
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 **{key: k[key] for key in keys}, library_ms=None,
                 timed=timed, **extra)
+
+
+def _emit_row(name, replaces, k, small, timed, **extra) -> dict:
+    """The kernels line's row of K6 or K7: ``k`` from its main path,
+    ``small`` from the small inputs."""
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by")
+    return dict(name=name, route="cuda",
+                source="phyx_tpu_torch/csrc/sweep_emit.cu",
+                replaces=replaces, **{key: k[key] for key in keys},
+                library_ms=None, timed=timed,
+                **{f"{key}_small_frames": small[key] for key in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms")},
+                **{key: k[key] for key in (
+                    "count_ms", "scan_ms", "emit_ms", "wrapper_device_ms",
+                    "wrapper_ms", "device_only", "emitted", "ovf",
+                    "rows_read", "walked", "bytes", "ops")}, **extra)
 
 
 def main() -> int:
@@ -1107,6 +1481,7 @@ def main() -> int:
     small = phase_compare()
     tiled = phase_compare_tiled()
     sweep_small = phase_compare_sweep()
+    emit_small = phase_compare_emit()
     phase_step_parity()
     if quick:
         return 0
@@ -1115,6 +1490,8 @@ def main() -> int:
     pile1k = phase_pile1k(card)
     pile20k = phase_pile20k(card)
     envs = phase_envs128(card)
+    envs64 = phase_envs64(card, envs)
+    pile500 = phase_pile500(card)
     passes = "warm + 1 velocity + 1 displacement pass"
     k3, k5 = pile20k["k3"], pile20k["k5"]
     # the tiled kernels on the small frames (all passes, ungated)
@@ -1128,7 +1505,8 @@ def main() -> int:
              f"{passes} at the 10k pile frame",
              max_abs_err_small_frames=small["K1"],
              ms_full_solve_chain_frame=chain["k1_ms_full_solve"],
-             contacts=pile["contacts"], joints=pile["joints"]),
+             contacts=pile["contacts"], joints=pile["joints"],
+             **envs64["k1"]),
         _row("contact_solver (K2)", "phyx_tpu_torch/csrc/contact_solver.cu",
              "phyx_tpu/kernels/contact_solver.py:50", chain,
              f"{passes} at the 1000-link chain frame",
@@ -1138,7 +1516,7 @@ def main() -> int:
              plain_ms_pile1k=pile1k["plain_ms"],
              bound_ms_pile1k=pile1k["bound_ms"],
              ms_full_solve_pile1k=pile1k["ms_full_solve"],
-             ns_per_visit_pile1k=pile1k["ns_per_visit"]),
+             ns_per_visit_pile1k=pile1k["ns_per_visit"], **pile500["k2"]),
         _row("contact_solver_tiled2 (K3)",
              "phyx_tpu_torch/csrc/contact_solver_tiled.cu",
              "phyx_tpu/kernels/contact_solver_tiled2.py:68", k3,
@@ -1167,10 +1545,22 @@ def main() -> int:
                  "wrapper_device_ms", "device_only", "sweeps", "rows_read",
                  "bytes")},
              emitted_pairs=envs["emitted"]),
+        _emit_row("sweep_emit_v2 (K6)", "phyx_tpu/kernels/sweep.py:371",
+                  envs64, emit_small["K6"],
+                  "the settled 64-env frame, device time of the two "
+                  "launches and the prefix sum",
+                  launches_pile10k_check=pile["k6"]["sap_launches"], **{
+                      f"{key}_pile10k": pile["k6"][key] for key in (
+                          "ms", "plain_ms", "bound_ms", "emitted",
+                          "rows_read", "walked")}),
+        _emit_row("sweep_emit (K7)", "phyx_tpu/kernels/sweep.py:36",
+                  pile500, emit_small["K7"],
+                  "the settled 500-box frame, device time of the two "
+                  "launches and the prefix sum"),
     ]
     for k in kernels:
-        k["max_abs_err"] = max(k["max_abs_err"], k["max_abs_err_small_frames"],
-                               k.get("max_abs_err_envs_frame", 0.0))
+        k["max_abs_err"] = max(v for key, v in k.items()
+                               if key.startswith("max_abs_err"))
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched on its path")
         if not all(math.isfinite(k[key]) for key in ("ms", "plain_ms",

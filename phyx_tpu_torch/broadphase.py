@@ -9,6 +9,9 @@
 * ``sap_tiled``: the slab-windowed sweep of kernel K4
   (``kernels/sweep_tiled.py``) over the x-sorted bodies, each sweep walking
   until its x-interval closes.
+* ``sap_kernel``: the sweep of kernel K6 (``kernels/sweep.py``), or K7
+  where the capacity is not in whole 1024-row chunks, over all the
+  x-sorted bodies, each row walking until its x-interval closes.
 * ``sap``: the reference's auto choice (``broadphase``).
 * ``n2``: masked all-pairs upper triangle — exact, the test ground truth.
 
@@ -32,6 +35,7 @@ import torch
 
 from phyx_tpu_torch import tiling
 from phyx_tpu_torch.config import SimConfig
+from phyx_tpu_torch.kernels.sweep import CHUNK, sweep_emit, sweep_emit_v2
 from phyx_tpu_torch.kernels.sweep_tiled import sweep_emit_tiled
 from phyx_tpu_torch.types import EMPTY, Bodies, _record
 
@@ -507,6 +511,42 @@ def broadphase_sap_tiled(bodies: Bodies, cfg: SimConfig,
     return _slab_major(pairs, bodies, rank_order(bodies, lo, hi, cfg), cfg)
 
 
+def sap_kernel_inputs(bodies: Bodies, max_pairs: int, chunked: bool) -> dict:
+    """The emission kernel's arguments (the reference's
+    ``broadphase_sap_kernel``): keys where(active, min x, inf), sorted
+    stably (equal keys keep index order, as ``lax.sort``), the inactive
+    bodies last with their real AABBs.  ``chunked``: K6's, the AABB and dyn
+    columns in sorted order; else K7's, by body id."""
+    lo, hi = compute_aabbs(bodies)
+    keys = torch.where(bodies.active, lo[:, 0], _INF)
+    order = torch.sort(keys, stable=True).indices
+    aabb = torch.stack([lo[:, 0], lo[:, 1], hi[:, 0], hi[:, 1]], dim=1)
+    dyn = (bodies.inv_mass > 0.0).to(torch.int32)
+    if chunked:
+        aabb, dyn = aabb[order], dyn[order]
+    return dict(aabb_flat=aabb.reshape(-1), order=order.to(torch.int32),
+                dyn=dyn, nact=bodies.active.sum(dtype=torch.int32),
+                max_pairs=max_pairs)
+
+
+def broadphase_sap_kernel(bodies: Bodies, cfg: SimConfig) -> Pairs:
+    """Sweep & prune through the emission kernels (the reference's
+    ``broadphase_sap_kernel``): K6 when the capacity is in whole 1024-row
+    chunks, else K7.  No window, no hit slots, no long lane: every active
+    body walks the x-sorted rows until its interval closes.  The emitted
+    buffer is lex-sorted; the kernel's one counter, buffer-full drops, is
+    ``ovf_drop`` and ``overflow``.  Never slab-major."""
+    chunked = bodies.capacity % CHUNK == 0
+    kernel = sweep_emit_v2 if chunked else sweep_emit
+    pi, pj, num, ovf = kernel(**sap_kernel_inputs(bodies, cfg.max_pairs,
+                                                  chunked))
+    pi, pj = lex_sort_pairs(pi, pj)
+    z = torch.zeros((), dtype=torch.int32, device=pi.device)
+    return Pairs(pi=pi, pj=pj, valid=pi != EMPTY, num=num, overflow=ovf,
+                 ovf_window=z, ovf_slots=z, ovf_drop=ovf, ovf_band=z,
+                 ovf_slab=z)
+
+
 # the reference's SMEM budget for its sweep kernels (broadphase.py:975-1003)
 SWEEP_SMEM_BUDGET = 900 * 1024
 
@@ -523,27 +563,23 @@ def broadphase(bodies: Bodies, cfg: SimConfig,
     """Dispatch on ``cfg.broadphase``, branch for branch as the reference
     (``phyx_tpu/broadphase.py`` ``broadphase``).  ``"sap"`` is its auto
     choice: K4 under ``pallas_tiled``, and under ``pallas`` above the sweep
-    budget (``sweep_kernel_smem_bytes``); the grid under ``xla``.  The
-    emission kernels K6/K7 (``sap_kernel``, and ``sap`` under ``pallas``
-    within the budget) are not ported yet (ROADMAP M14).
+    budget (``sweep_kernel_smem_bytes``); the emission kernels K6/K7 under
+    ``pallas`` within it; the grid under ``xla``.
     ``tiled_routing``: the sweeps' slab-major finalize, None = whenever the
     configuration runs the tiled solve, False = never (jointed scenes: the
     jointed-pair exclusion re-sorts the buffer)."""
     name = cfg.broadphase
     if name == "n2":
         return broadphase_n2(bodies, cfg)
+    if name == "sap_kernel":
+        return broadphase_sap_kernel(bodies, cfg)
     if name in ("sap_grid", "sap_window"):
         return broadphase_sap_grid(bodies, cfg, emit_routing=tiled_routing)
-    tiled = name == "sap_tiled" or (name == "sap" and (
-        cfg.solver_backend == "pallas_tiled"
-        or (cfg.solver_backend == "pallas" and sweep_kernel_smem_bytes(
-            bodies.capacity, cfg.max_pairs) > SWEEP_SMEM_BUDGET)))
-    if tiled:
+    if name == "sap_tiled" or cfg.solver_backend == "pallas_tiled":
         return broadphase_sap_tiled(bodies, cfg, emit_routing=tiled_routing)
-    if name == "sap_kernel" or cfg.solver_backend == "pallas":
-        raise NotImplementedError(
-            f"broadphase={name!r} with solver_backend="
-            f"{cfg.solver_backend!r} at {bodies.capacity} bodies runs the "
-            "sweep emission kernels K6/K7, which are not ported yet: "
-            "ROADMAP M14")
+    if cfg.solver_backend == "pallas":
+        if sweep_kernel_smem_bytes(bodies.capacity,
+                                   cfg.max_pairs) <= SWEEP_SMEM_BUDGET:
+            return broadphase_sap_kernel(bodies, cfg)
+        return broadphase_sap_tiled(bodies, cfg, emit_routing=tiled_routing)
     return broadphase_sap_grid(bodies, cfg, emit_routing=tiled_routing)

@@ -42,6 +42,7 @@ import torch
 
 from phyx_tpu_torch.kernels import nvcc
 from phyx_tpu_torch.kernels.contact_solver_streamed import _check
+from phyx_tpu_torch.kernels.sweep import _counters, _launch, _require_cuda
 from phyx_tpu_torch.types import EMPTY
 
 SOURCE = nvcc.CSRC / "sweep_tiled.cu"
@@ -103,8 +104,7 @@ def sweep_emit_tiled(
     device = rows.device
     if device.type == "cpu":
         return sweep_emit_tiled_plain(*args)
-    if device.type != "cuda":
-        raise NotImplementedError(f"no sweep kernel for {device.type}")
+    _require_cuda(device)
     counts = torch.empty((n_slabs * slab_stride,), dtype=torch.int32,
                          device=device)
     ovf_window = torch.zeros((1,), dtype=torch.int32, device=device)
@@ -114,21 +114,10 @@ def sweep_emit_tiled(
     ends = torch.cumsum(counts, 0, dtype=torch.int64)
     emit_pass(*args, counts, ends, pi, pj)
     sweep_emit_tiled.launches += 1
-    total = ends[-1]
-    num = torch.clamp(total, max=max_pairs)
-    return (pi, pj, num.to(torch.int32), (total - num).to(torch.int32),
-            ovf_window[0])
+    return (pi, pj) + _counters(ends[-1], max_pairs) + (ovf_window[0],)
 
 
 sweep_emit_tiled.launches = 0
-
-
-def _columns(rows, dyn, order, nact, max_pairs, n_slabs, slab_stride,
-             window_rows, truex) -> tuple:
-    """The C entries' leading arguments: column pointers, then geometry."""
-    return (rows.data_ptr(), 0 if truex is None else truex.data_ptr(),
-            dyn.data_ptr(), order.data_ptr(), nact.data_ptr(),
-            rows.shape[-1], slab_stride, window_rows, n_slabs)
 
 
 def count_pass(rows, dyn, order, nact, max_pairs, n_slabs, slab_stride,
@@ -138,16 +127,9 @@ def count_pass(rows, dyn, order, nact, max_pairs, n_slabs, slab_stride,
     walks that overran their window added to ``ovf_window`` (1,) int32.
     Raises if the launch was refused.  (The wrapper's part; called alone
     only to time it.)"""
-    lib, _ = build()
-    cols = _columns(rows, dyn, order, nact, max_pairs, n_slabs, slab_stride,
-                    window_rows, truex)
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.phyx_sweep_tiled_count(
-            *cols[:5], counts.data_ptr(), ovf_window.data_ptr(), *cols[5:],
-            stream)
-    if err != 0:
-        raise RuntimeError(f"sweep count launch failed: CUDA error {err}")
+    _launch(build()[0].phyx_sweep_tiled_count, rows, truex, dyn, order, nact,
+            counts, ovf_window, rows.shape[-1], slab_stride, window_rows,
+            n_slabs)
 
 
 def emit_pass(rows, dyn, order, nact, max_pairs, n_slabs, slab_stride,
@@ -156,16 +138,9 @@ def emit_pass(rows, dyn, order, nact, max_pairs, n_slabs, slab_stride,
     and writes its pairs from the slot ``ends - counts`` ((n_sweeps,) int64
     inclusive prefix sum of ``counts``) while below ``max_pairs``.  Raises
     if the launch was refused."""
-    lib, _ = build()
-    cols = _columns(rows, dyn, order, nact, max_pairs, n_slabs, slab_stride,
-                    window_rows, truex)
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.phyx_sweep_tiled_emit(
-            *cols[:5], counts.data_ptr(), ends.data_ptr(), pi.data_ptr(),
-            pj.data_ptr(), *cols[5:], max_pairs, stream)
-    if err != 0:
-        raise RuntimeError(f"sweep emit launch failed: CUDA error {err}")
+    _launch(build()[0].phyx_sweep_tiled_emit, rows, truex, dyn, order, nact,
+            counts, ends, pi, pj, rows.shape[-1], slab_stride, window_rows,
+            n_slabs, max_pairs)
 
 
 def sweep_emit_tiled_plain(rows, dyn, order, nact, max_pairs: int,

@@ -3,7 +3,8 @@
 One frame, with no host round-trip:
 
     integrate velocities (gravity)
-    -> broadphase (grid or K4 sweep & prune, static shapes)
+    -> broadphase (grid, or sweep & prune through K4 or K6/K7; static
+       shapes)
     -> jointed-pair exclusion
     -> narrowphase (batched SAT + clip)
     -> contact-cache join (warm-start impulses carried across frames)

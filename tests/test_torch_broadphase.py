@@ -16,6 +16,7 @@ from phyx_tpu.config import SimConfig as JaxConfig
 from phyx_tpu_torch.broadphase import EMPTY, broadphase, lex_sort_pairs
 from phyx_tpu_torch.config import SimConfig
 from phyx_tpu_torch.convert import state_from_numpy
+from phyx_tpu_torch.step import step
 
 torch.set_num_threads(1)
 
@@ -95,14 +96,18 @@ def test_n2_drop_keeps_lowest_pairs():
 
 
 def test_unported_paths_raise():
-    """The sweep emission kernels K6/K7: ``sap_kernel``, and ``sap`` under
-    the pallas backend within the reference's sweep budget."""
-    bodies = state_from_numpy(jittered_pile(BASE, 20, 0), "cpu").bodies
+    """The sweep-emission configs (K7 at this capacity): their broadphase
+    equals the reference's under every backend, and the one whose solve is
+    not ported, ``sap_kernel`` under ``xla`` (the colored solve, M10),
+    raises at its step."""
     for name, backend in (("sap_kernel", "xla"), ("sap_kernel", "pallas"),
                           ("sap", "pallas")):
-        with pytest.raises(NotImplementedError, match="M14"):
-            broadphase(bodies, SimConfig(**BASE, broadphase=name,
-                                         solver_backend=backend))
+        cfg_kw = dict(BASE, broadphase=name, solver_backend=backend)
+        counts = compare(cfg_kw, 200, 0)
+        assert counts["num"] > 100 and counts["overflow"] == 0
+    st = state_from_numpy(jittered_pile(cfg_kw, 200, 0), "cpu")
+    with pytest.raises(NotImplementedError, match="M10"):
+        step(st, SimConfig(**dict(cfg_kw, solver_backend="xla")))
 
 
 @pytest.mark.parametrize("n_cap", [256, 1 << 16])
