@@ -8,7 +8,8 @@ Phases; any failure raises and the script exits non-zero:
 1. device  — require CUDA; print the card's name and power limit.
 2. build   — build the seven kernels from the five sources of
              ``phyx_tpu_torch/csrc``, one ``nvcc`` each, started together:
-             K1, the streamed solve (state in device memory), K2, the
+             K1, the streamed solve (state in device memory, run level by
+             level over the visits' dependency graph), K2, the
              fused solve (state in shared memory), in one source K3 and
              K5, the slab-major and the routed tiled solves (the x-rank
              embedded body table in device memory), K4, the
@@ -48,7 +49,15 @@ Phases; any failure raises and the script exits non-zero:
              kernel; finite state, contacts present, bench.py's quality bar
              met; the device time of the step's stages (CUDA events); K1
              against its plain version at the frame's shapes on fewer
-             passes, gates off and on, and both timed; at the settled frame
+             passes, gates off and on, and both timed; K1's pre-pass
+             against ``visit_levels`` (levels, offsets, each level's rows),
+             the levels a pass, their widths and the pre-pass timed alone,
+             and the pre-pass with its last-level array in device memory
+             against ``visit_levels`` too; K1 against
+             ``solve_contacts_levels_plain`` on all passes; K1 with both
+             per-body arrays in device memory (the placement above N =
+             51,200, its solve's above 19,285) equal to K1 on all passes,
+             and timed; at the settled frame
              ``broadphase="sap"`` (K6 at cap 16,384) gives the grid's lex
              buffer, ``num`` and zero counters, and K6 equals its plain
              version and is timed there.
@@ -96,7 +105,9 @@ Phases; any failure raises and the script exits non-zero:
              0, penetration ratio <= 0.2, finite state; env-steps/s beside
              the 128-env scene's; stage times; K6 against its plain version
              at the settled frame and timed (device time behind a sleep
-             kernel), K1 timed on all passes.
+             kernel); K1 against its plain version (warm + 1 + 1 passes)
+             and timed on all passes, and its level checks and its
+             placement in device memory as at the 10k frame.
 10. pile500 — a 500-box pile under ``broadphase="sap"`` at bench.py's
              build() settings (cap 512, 2,048 pairs): K7, the capacity not
              in whole chunks, and K2: 400-frame settle, slope timing, K7 and
@@ -984,6 +995,112 @@ def _kernel_at_frame(st, cfg, wrapper, name) -> dict:
                 joints=numj)
 
 
+def _k1_levels(args, what: str) -> dict:
+    """K1's level schedule at a frame: the kernel's pre-pass against
+    ``visit_levels`` (each visit's level, the level offsets, and each
+    level's records a permutation of its rows), the levels per pass and
+    their widths, the pre-pass timed alone (CUDA events over repeated
+    launches).  Not a launch of K1's wrapper."""
+    import torch
+    from phyx_tpu_torch.kernels.contact_solver_streamed import (prepass,
+                                                                 visit_levels)
+    n = args["body_flat"].numel() // 8
+    lv = visit_levels(args["b1"], args["b2"], args["num_contacts"],
+                      args["num_joints"], args["c_cap"], n)
+    v, n_levels = lv["slots"].numel(), lv["n_levels"]
+    off = lv["offsets"]
+    # the wrapper's placement of the last-level array, then device memory
+    for smem_last in (None, False):
+        dev = prepass(**args, smem_last=smem_last)
+        _sync()
+        ok = (int(dev["n_levels"][0]) == n_levels
+              and torch.equal(dev["level"][:v].long(), lv["level"])
+              and torch.equal(dev["offsets"][:n_levels + 1].long(), off))
+        if ok:
+            # (level, slot) of every record, sorted, against the plain
+            # buckets
+            pos_level = torch.repeat_interleave(
+                torch.arange(n_levels, device=off.device), off.diff())
+            r = args["b1"].numel()
+            got = torch.sort(pos_level * r + dev["slots"][:v].long()).values
+            ref = torch.sort(pos_level * r + lv["slots"][lv["order"]]).values
+            ok = torch.equal(got, ref)
+        if not ok:
+            raise AssertionError(f"K1's pre-pass (smem_last {smem_last}) "
+                                 f"differs from visit_levels at {what}")
+    widths = off.diff().double()
+    q = torch.quantile(widths, torch.tensor(
+        [0.5, 0.9, 0.99], dtype=torch.float64, device=widths.device))
+    out = dict(levels=n_levels, visits=v,
+               width_p50=float(q[0]), width_p90=float(q[1]),
+               width_p99=float(q[2]), width_max=int(widths.max()),
+               prepass_ms=_kernel_ms(prepass, args, reps=20))
+    print(f"# K1 levels at {what}: {n_levels} levels a pass over {v} "
+          f"visits, widths p50 {out['width_p50']} p90 {out['width_p90']} "
+          f"p99 {out['width_p99']} max {out['width_max']}; pre-pass "
+          f"{out['prepass_ms']:.4f} ms; equal to visit_levels, the "
+          "last-level array in shared and in device memory", flush=True)
+    return out
+
+
+def _k1_equals_levels_plain(args, what: str) -> dict:
+    """K1 against ``solve_contacts_levels_plain`` on all the frame's passes
+    (ungated): equal to the bit.  Returns the max abs difference and the
+    plain version's ms."""
+    from phyx_tpu_torch.kernels.contact_solver_streamed import \
+        solve_contacts_levels_plain
+    got = _wrappers()["K1"](**args)
+    _sync()
+    t0 = time.perf_counter()
+    ref = solve_contacts_levels_plain(**args)
+    _sync()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = _equal("K1 vs the levels plain version", got, ref)
+    print(f"# compare: K1 == solve_contacts_levels_plain at {what}, all "
+          f"{1 + args['vel_iters'] + args['pos_iters']} passes; max abs "
+          f"diff {err}; the plain version {plain_ms:.0f} ms", flush=True)
+    return dict(max_abs_err_levels_plain=err, levels_plain_ms=plain_ms)
+
+
+def _k1_level_checks(k: dict, what: str) -> dict:
+    """At a main-path frame of K1 (``k`` from ``_kernel_at_frame``): its
+    levels, K1 == the levels plain version on all passes, and K1 with its
+    per-body arrays in device memory.  Returns the numbers for K1's row."""
+    args = k["args"]
+    lv = _k1_levels(args, what)
+    return dict(levels=lv["levels"], prepass_ms=lv["prepass_ms"],
+                ns_per_level=(k["ms_full_solve"] - lv["prepass_ms"]) * 1e6
+                / max(1, lv["levels"] * (1 + args["vel_iters"]
+                                         + args["pos_iters"])),
+                level_widths={key: lv[key] for key in (
+                    "width_p50", "width_p90", "width_p99", "width_max")},
+                **_k1_equals_levels_plain(args, what),
+                **_k1_in_device_memory(args, what))
+
+
+def _k1_in_device_memory(args, what: str) -> dict:
+    """K1 with its last-level array and working columns in device memory
+    (the placement of frames above N = 51,200; the columns' alone above
+    19,285, as at the 20k frame) against K1 as the wrapper places them, on
+    all passes, gated as the frame is and ungated: equal to the bit.  Then
+    timed.  These launches of the wrapper are comparisons, made after the
+    main path's counts were read."""
+    from phyx_tpu_torch.kernels.contact_solver_streamed import \
+        solve_in_device_memory
+    k1 = _wrappers()["K1"]
+    err = 0.0
+    for tols in (args.get("tols"), None):
+        ref = k1(**dict(args, tols=tols))
+        got = solve_in_device_memory(**dict(args, tols=tols))
+        _sync()
+        err = max(err, _equal("K1 in device memory vs K1", got, ref))
+    ms = _kernel_ms(solve_in_device_memory, args, reps=5)
+    print(f"# compare: K1 with its per-body arrays in device memory == K1 "
+          f"at {what}, all passes, gated and ungated; max abs diff {err}; "
+          f"{ms:.4f} ms a full solve", flush=True)
+    return dict(max_abs_err_device_memory=err, ms_full_solve_device_memory=ms)
+
+
 def _sap_equals_grid(st, cfg) -> dict:
     """At the frame ``step(st, cfg)`` would run (``cfg`` the grid's), the
     grid's pairs, whose counters must read 0, against
@@ -1035,14 +1152,16 @@ def phase_pile10k(card: str) -> dict:
                              f"{pen_ratio}")
     st, stages = _stage_ms(st, cfg, frames=3)
     k = _kernel_at_frame(st, cfg, w["K1"], "K1")
+    lv = _k1_level_checks(k, "the settled 10k frame")
     k6 = _sap_equals_grid(st, cfg)
     out.update(metric="steps/s @ 10000-box pile (port, H100 path)",
                penetration_ratio=pen_ratio, stage_device_ms=stages,
                solve_ms_full=k["ms_full_solve"],
                solve_share_of_frame=k["ms_full_solve"] / out["frame_ms"],
-               k6_device_ms_sap=k6["ms"], k6_pairs_sap=k6["emitted"])
+               k1_levels=lv, k6_device_ms_sap=k6["ms"],
+               k6_pairs_sap=k6["emitted"])
     print(json.dumps(out), flush=True)
-    return dict(k, launches=out["launches"]["K1"], k6=k6)
+    return dict(k, launches=out["launches"]["K1"], k6=k6, **lv)
 
 
 def phase_chain(card: str) -> dict:
@@ -1135,7 +1254,9 @@ def phase_pile20k(card: str) -> dict:
     ms_full = _kernel_ms(wrappers["K3"], args, reps=3)
     full = _bound_slabs(args, walked)
 
-    # K1 on the same frame, live rows compacted first (not asserted on)
+    # K1 on the same frame, live rows compacted first (timed only: its
+    # placement, the working columns in device memory, is held to the
+    # wrapper's at the 10k and 64-env frames by _k1_in_device_memory)
     rows = solve_inputs(st, cfg, "rows")
     k1_ms = _kernel_ms(wrappers["K1"], rows, reps=3)
     k1_visits = _bound(rows)["visits"]
@@ -1388,6 +1509,8 @@ def phase_envs64(card: str, envs128: dict) -> dict:
     k1_ms_short = _kernel_ms(k1, k1_short, reps=5)
     k1_ms = _kernel_ms(k1, k1_args, reps=3)
     k1_visits = _bound(k1_args)["visits"]
+    lv = _k1_level_checks(dict(args=k1_args, ms_full_solve=k1_ms),
+                          f"the settled {n_envs}-env frame")
     out.update(metric=f"env-steps/s @ {n_envs} envs x 256 boxes (port, H100 "
                "path)", env_steps_per_s=out["steps_per_s"] * n_envs,
                env_steps_per_s_128_envs=envs128["env_steps_per_s"],
@@ -1396,7 +1519,7 @@ def phase_envs64(card: str, envs128: dict) -> dict:
                k6_device_ms=k6["ms"], k6_wrapper_ms=k6["wrapper_ms"],
                k6_emitted=k6["emitted"], solve_ms_full=k1_ms,
                solve_share_of_frame=k1_ms / out["frame_ms"],
-               k1_ns_per_visit=k1_ms * 1e6 / k1_visits,
+               k1_ns_per_visit=k1_ms * 1e6 / k1_visits, k1_levels=lv,
                reference_fingerprint=REF_E, cut="none (bench.py's default)")
     print(json.dumps(out), flush=True)
     return dict(k6, launches=out["launches"]["K6"], k1={
@@ -1406,7 +1529,8 @@ def phase_envs64(card: str, envs128: dict) -> dict:
         "bound_ms_envs64": _bound(k1_short)["bound_ms"],
         "ms_full_solve_envs64": k1_ms,
         "ns_per_visit_envs64": k1_ms * 1e6 / k1_visits,
-        "contacts_envs64": int(k1_args["num_contacts"])})
+        "contacts_envs64": int(k1_args["num_contacts"]),
+        **{f"{key}_envs64": v for key, v in lv.items()}})
 
 
 def phase_pile500(card: str) -> dict:
@@ -1506,6 +1630,11 @@ def main() -> int:
              max_abs_err_small_frames=small["K1"],
              ms_full_solve_chain_frame=chain["k1_ms_full_solve"],
              contacts=pile["contacts"], joints=pile["joints"],
+             **{key: pile[key] for key in (
+                 "levels", "prepass_ms", "ns_per_level", "level_widths",
+                 "max_abs_err_levels_plain", "levels_plain_ms",
+                 "max_abs_err_device_memory",
+                 "ms_full_solve_device_memory")},
              **envs64["k1"]),
         _row("contact_solver (K2)", "phyx_tpu_torch/csrc/contact_solver.cu",
              "phyx_tpu/kernels/contact_solver.py:50", chain,

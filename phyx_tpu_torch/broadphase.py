@@ -3,9 +3,10 @@
 
 * ``sap_grid``: sort bodies by AABB min-x, test every body against its
   ``sap_window`` forward neighbours with per-body hit slots, and compact the
-  hits into the fixed ``max_pairs`` buffer.  ``sap_window`` maps here too:
-  the reference's own dispatch says the grid dominates the windowed sweep
-  with the same window semantics.
+  hits into the fixed ``max_pairs`` buffer.
+* ``sap_window``: the windowed sweep (``broadphase_sap``): the same
+  ``sap_window`` forward neighbours, every hit kept (no hit slots), never
+  slab-major.
 * ``sap_tiled``: the slab-windowed sweep of kernel K4
   (``kernels/sweep_tiled.py``) over the x-sorted bodies, each sweep walking
   until its x-interval closes.
@@ -248,6 +249,54 @@ def _long_object_lane(bodies: Bodies, lo, hi, dynamic, k_long: int):
     d_pi = torch.minimum(long_id32[:, None], jdx[None, :])
     d_pj = torch.maximum(long_id32[:, None], jdx[None, :])
     return d_pi, d_pj, d_valid, is_long
+
+
+def broadphase_sap(bodies: Bodies, cfg: SimConfig) -> Pairs:
+    """The windowed sweep & prune (the reference's ``broadphase_sap``):
+    the ``sap_long_k`` widest bodies go to the long lane, the rest are
+    sorted by min x (stable; parked bodies at +inf), and the body at rank k
+    is tested against ranks k+1 .. k+w, w = min(sap_window, N - 1), as one
+    (w + 1, N) gather.  Every hit is kept.  A sweep whose (w+1)-th
+    neighbour is still x-open counts into ``ovf_window``.  The buffer is
+    lex-sorted, never slab-major (under ``pallas_tiled`` the step then
+    routes to K5, as the reference's does)."""
+    n = bodies.capacity
+    dev = bodies.pos.device
+    w = min(cfg.sap_window, n - 1)
+    lo, hi = compute_aabbs(bodies)
+    dynamic = bodies.inv_mass > 0.0
+    d_pi, d_pj, d_valid, is_long = _long_object_lane(
+        bodies, lo, hi, dynamic, min(cfg.sap_long_k, n))
+
+    sweep_act = bodies.active & ~is_long
+    keys = torch.where(sweep_act, lo[:, 0], torch.full_like(lo[:, 0], _INF))
+    order = torch.sort(keys, stable=True).indices
+    slo, shi = lo[order], hi[order]
+    sact, sdyn = sweep_act[order], dynamic[order]
+    order = order.to(torch.int32)
+
+    # neighbour d + 1 of rank k sits at rank k + d + 1 (clamped to N - 1,
+    # masked by in_range)
+    jpos = (torch.arange(n, device=dev)[None, :]
+            + torch.arange(1, w + 2, device=dev)[:, None])
+    in_range = jpos < n
+    jc = torch.clamp(jpos, max=n - 1)
+    j_lo, j_hi = slo[jc], shi[jc]                 # (w + 1, N, 2)
+    j_act, j_dyn = sact[jc], sdyn[jc]
+    x_open = j_lo[..., 0] <= shi[None, :, 0]
+    y_overlap = ((j_lo[..., 1] <= shi[None, :, 1])
+                 & (slo[None, :, 1] <= j_hi[..., 1]))
+    ok = (in_range & x_open & y_overlap & sact[None, :] & j_act
+          & (sdyn[None, :] | j_dyn))
+    j_ord = order[jc]
+    pi = torch.minimum(order[None, :], j_ord)[:w]
+    pj = torch.maximum(order[None, :], j_ord)[:w]
+    open_last = in_range[w] & x_open[w] & sact & j_act[w]
+    missed = open_last.sum(dtype=torch.int32)
+    return _finish(torch.cat([pi.reshape(-1), d_pi.reshape(-1)]),
+                   torch.cat([pj.reshape(-1), d_pj.reshape(-1)]),
+                   torch.cat([ok[:w].reshape(-1), d_valid.reshape(-1)]),
+                   cfg.max_pairs, ovf_window=missed)
 
 
 def broadphase_sap_grid(bodies: Bodies, cfg: SimConfig,
@@ -573,9 +622,13 @@ def broadphase(bodies: Bodies, cfg: SimConfig,
         return broadphase_n2(bodies, cfg)
     if name == "sap_kernel":
         return broadphase_sap_kernel(bodies, cfg)
-    if name in ("sap_grid", "sap_window"):
+    if name == "sap_grid":
         return broadphase_sap_grid(bodies, cfg, emit_routing=tiled_routing)
-    if name == "sap_tiled" or cfg.solver_backend == "pallas_tiled":
+    if name == "sap_tiled":
+        return broadphase_sap_tiled(bodies, cfg, emit_routing=tiled_routing)
+    if name == "sap_window":
+        return broadphase_sap(bodies, cfg)
+    if cfg.solver_backend == "pallas_tiled":
         return broadphase_sap_tiled(bodies, cfg, emit_routing=tiled_routing)
     if cfg.solver_backend == "pallas":
         if sweep_kernel_smem_bytes(bodies.capacity,

@@ -1,10 +1,11 @@
-// The serial sequential-impulse solve shared by the two solve kernels,
-// contact_solver_streamed.cu (body table and accumulators in device memory)
-// and contact_solver.cu (both in shared memory).  Both call solve_rows, so
-// they visit the same rows in the same order with the same arithmetic and
-// agree to the bit by construction.  Built with -fmad=false: every multiply
-// and add rounds separately, in the order written here, which is the order
-// of the plain version (phyx_tpu_torch/kernels/contact_solver_streamed.py).
+// The visits of every solve kernel, and the serial walk solve_rows of the
+// fused kernel contact_solver.cu (state in shared memory).  The streamed
+// kernel contact_solver_streamed.cu runs the same visits level by level,
+// and the tiled kernels (solve_slabs.cuh) in slab order; every kernel does
+// each visit's arithmetic here, so the fused and streamed kernels agree to
+// the bit by construction.  Built with -fmad=false: every multiply and add
+// rounds separately, in the order written here, which is the order of the
+// plain version (phyx_tpu_torch/kernels/contact_solver_streamed.py).
 //
 // Layout (flat): body rows (N*8) [vx, vy, w, inv_mass, inv_inertia, dvx,
 // dvy, dw]; plain body ids b1/b2 (R); rows con (R*12) and warm (R*2);
@@ -13,6 +14,12 @@
 // c_nt]; joint rows [c_cap, c_cap + numj) use the encodings of
 // phyx_tpu_torch/joints.py (kind in slot 11).  Each pass visits the contact
 // rows, then the joint rows.
+//
+// The visits are templates on the body type B: bi[c] reads or writes
+// column c of a body.  B = float* is a row of the body table (the serial
+// walks here and in solve_slabs.cuh); the level solve of
+// contact_solver_streamed.cu passes a view whose working columns sit in
+// shared memory.  The arithmetic, and its order, is the same for every B.
 
 #pragma once
 
@@ -40,7 +47,8 @@ __device__ __forceinline__ int clamp_id(int i, int n) {
 
 // ---- contact rows ----
 
-__device__ __forceinline__ void contact_warm(float* bi, float* bj,
+template <class B>
+__device__ __forceinline__ void contact_warm(B bi, B bj,
                                              const float* c, const float* w,
                                              float* a) {
   const float nx = c[0], ny = c[1];
@@ -60,7 +68,8 @@ __device__ __forceinline__ void contact_warm(float* bi, float* bj,
 }
 
 // coupled-tangent velocity visit; returns max(|dn|, |dt|)
-__device__ __forceinline__ float contact_vel(float* bi, float* bj,
+template <class B>
+__device__ __forceinline__ float contact_vel(B bi, B bj,
                                              const float* c, float* a) {
   const float nx = c[0], ny = c[1];
   const float r1x = c[2], r1y = c[3], r2x = c[4], r2y = c[5];
@@ -95,7 +104,8 @@ __device__ __forceinline__ float contact_vel(float* bi, float* bj,
 }
 
 // displacement visit on the pseudo-velocity columns 5-7; returns |d|
-__device__ __forceinline__ float contact_pos(float* bi, float* bj,
+template <class B>
+__device__ __forceinline__ float contact_pos(B bi, B bj,
                                              const float* c, float* a) {
   const float nx = c[0], ny = c[1];
   const float r1x = c[2], r1y = c[3], r2x = c[4], r2y = c[5];
@@ -129,20 +139,22 @@ struct JointArms {
   float r1x, r1y, r2x, r2y;
 };
 
+// selects, not an index computed at run time: c may be an array in
+// registers
 __device__ __forceinline__ JointArms joint_arms(const float* c) {
   JointArms g;
   g.rev = c[11] == 1.0f;
-  const int o = g.rev ? 0 : 2;
-  g.r1x = c[o];
-  g.r1y = c[o + 1];
-  g.r2x = c[o + 2];
-  g.r2y = c[o + 3];
+  g.r1x = g.rev ? c[0] : c[2];
+  g.r1y = g.rev ? c[1] : c[3];
+  g.r2x = g.rev ? c[2] : c[4];
+  g.r2y = g.rev ? c[3] : c[5];
   return g;
 }
 
 // apply the impulse (px, py) to columns off..off+2; every body value is
 // read afresh, as the reference kernels read it
-__device__ __forceinline__ void joint_apply(float* bi, float* bj,
+template <class B>
+__device__ __forceinline__ void joint_apply(B bi, B bj,
                                             const JointArms& g, float px,
                                             float py, int off) {
   const float im1 = bi[3], ii1 = bi[4], im2 = bj[3], ii2 = bj[4];
@@ -154,7 +166,8 @@ __device__ __forceinline__ void joint_apply(float* bi, float* bj,
   bj[off + 2] = bj[off + 2] + ii2 * (g.r2x * py - g.r2y * px);
 }
 
-__device__ __forceinline__ void joint_warm(float* bi, float* bj,
+template <class B>
+__device__ __forceinline__ void joint_warm(B bi, B bj,
                                            const float* c, const float* w,
                                            float* a) {
   const JointArms g = joint_arms(c);
@@ -174,7 +187,8 @@ __device__ __forceinline__ void joint_warm(float* bi, float* bj,
 
 // revolute impulse -(M dv); distance impulse -m (n.dv) n; returns
 // max(|px|, |py|)
-__device__ __forceinline__ float joint_vel(float* bi, float* bj,
+template <class B>
+__device__ __forceinline__ float joint_vel(B bi, B bj,
                                            const float* c, float* a) {
   const JointArms g = joint_arms(c);
   const float vx1 = bi[0], vy1 = bi[1], w1 = bi[2];
@@ -200,7 +214,8 @@ __device__ __forceinline__ float joint_vel(float* bi, float* bj,
 }
 
 // displacement visit toward the row's target; returns max(|px|, |py|)
-__device__ __forceinline__ float joint_pos(float* bi, float* bj,
+template <class B>
+__device__ __forceinline__ float joint_pos(B bi, B bj,
                                            const float* c, float* a) {
   const JointArms g = joint_arms(c);
   const float px1 = bi[5], py1 = bi[6], q1 = bi[7];

@@ -2,9 +2,10 @@
 table and the accumulators in one block's shared memory.
 
 Counterpart of ``phyx_tpu/kernels/contact_solver.py`` (``_solver_kernel``,
-``solve_contacts_fused``).  The kernel is ``csrc/contact_solver.cu``; its
-visits are ``solve_rows`` in ``csrc/solve_rows.cuh``, the same code the
-streamed kernel runs, so the two agree to the bit.  Inputs, outputs and
+``solve_contacts_fused``).  The kernel is ``csrc/contact_solver.cu``; it
+walks the visits of ``csrc/solve_rows.cuh`` serially (``solve_rows``), the
+streamed kernel runs the same visits level by level, so the two agree to
+the bit.  Inputs, outputs and
 gates are those of ``kernels/contact_solver_streamed.py`` (see its
 docstring), and so is the plain version.
 

@@ -1,24 +1,30 @@
-"""The serial solve with the body table in device memory: warm start,
-velocity passes, displacement passes, in the exact Gauss-Seidel order of
-the oracle, over contact rows and then user-joint rows.
+"""The solve with the body table in device memory: warm start, velocity
+passes, displacement passes, in the exact Gauss-Seidel order of the oracle,
+over contact rows and then user-joint rows, run level by level.
 
 Counterpart of ``phyx_tpu/kernels/contact_solver_streamed.py``
 (``_streamed_kernel``, ``solve_contacts_streamed``).  The kernel is
-``csrc/contact_solver_streamed.cu``; its visits are ``solve_rows`` in
-``csrc/solve_rows.cuh``, shared with the fused kernel
-(``kernels/contact_solver.py``), which computes the same function with its
-state in shared memory.  Built with ``nvcc`` at first use
-(``kernels/nvcc.py``) and called through ``ctypes``.
+``csrc/contact_solver_streamed.cu``: a pre-pass gives every live visit a
+level in the visits' dependency graph (``visit_levels`` here computes the
+same levels), then one block runs each pass level by level, the visits of
+a level (which touch disjoint bodies) side by side.  Its visits are those
+of ``csrc/solve_rows.cuh``, shared with the fused kernel
+(``kernels/contact_solver.py``), which walks them serially with its state in
+shared memory.  Built with ``nvcc`` at first use (``kernels/nvcc.py``) and
+called through ``ctypes``.
 
 * ``solve_contacts_streamed`` is the wrapper: on CUDA tensors it launches
   the kernel (or raises); on CPU tensors it runs the plain version.
 * ``solve_contacts_streamed_plain`` is the plain version of both kernels:
-  the same visits in the same order as scalar float32 torch operations.
+  the same visits in the serial order as scalar float32 torch operations.
   Each visit's arithmetic is written in the kernels' order, and they are
   built with ``-fmad=false``, so all three agree to the bit on the same
   inputs.  Its walk, ``plain_walk``, also serves the plain versions of
   the tiled kernels (``kernels/contact_solver_tiled.py``), which visit in
   another order.
+* ``solve_contacts_levels_plain`` is a second plain version: the same solve
+  level by level, one vectorised torch operation per scalar operation.  It
+  equals the first to the bit.
 
 Layout (flat, as in the reference): body rows ``(N*8,)`` f32 of
 ``[vx, vy, w, inv_mass, inv_inertia, dvx, dvy, dw]``; plain body ids
@@ -52,6 +58,19 @@ from phyx_tpu_torch.kernels import nvcc
 
 SOURCE = nvcc.CSRC / "contact_solver_streamed.cu"
 
+# 12 N bytes of working columns, beside 1 KB of the block's own, within
+# one block's 227 KB of shared memory: N <= 19,285
+SMEM_COLS_MAX = 232_448 - 1_024
+# the pre-pass's last-level array, 4 N bytes: N <= 51,200
+SMEM_LAST_MAX = 200 * 1_024
+
+
+def placement(n: int) -> dict:
+    """Where the kernel keeps its per-body arrays for ``n`` bodies: in
+    shared memory where they fit one block, else in device memory."""
+    return dict(smem_last=4 * n <= SMEM_LAST_MAX,
+                smem_cols=12 * n <= SMEM_COLS_MAX)
+
 
 @functools.lru_cache(maxsize=1)
 def build() -> tuple:
@@ -60,9 +79,23 @@ def build() -> tuple:
     lib, report = nvcc.load(SOURCE)
     fn = lib.phyx_contact_solve_streamed
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.phyx_visit_levels
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int]
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, report
+
+
+def _scratch(n: int, r: int, device) -> tuple:
+    """The kernel's scratch: 4 R + N + 2 int32 (levels, level offsets,
+    cursors, row slots, per-body last levels) and 24 R f32 (the records
+    and accumulators in level order)."""
+    return (torch.empty((4 * r + n + 2,), dtype=torch.int32, device=device),
+            torch.empty((24 * r,), dtype=torch.float32, device=device))
 
 
 def _check(name, t, dtype, shape, device):
@@ -133,10 +166,29 @@ def solve_contacts_streamed(
     if device.type != "cuda":
         raise NotImplementedError(f"no solve kernel for {device.type}")
 
+    out = _launch(*args[:9], c_cap, tols, **placement(n))
+    solve_contacts_streamed.launches += 1
+    return out
+
+
+solve_contacts_streamed.launches = 0
+
+
+def _launch(body_flat, b1, b2, con_flat, warm_flat, num_contacts, vel_iters,
+            pos_iters, num_joints, c_cap, tols, smem_last: bool,
+            smem_cols: bool):
+    """Launches the kernel on checked CUDA inputs with its per-body arrays
+    placed as given.  The wrapper places them by ``placement``; a check on
+    the card also runs the placements in device memory at shapes where
+    they would fit shared memory.  Not counted in the launches."""
+    n = body_flat.numel() // 8
+    r = b1.numel()
+    device = body_flat.device
     lib, _ = build()
     body_out = body_flat.clone()
     acc = torch.zeros((r * 4,), dtype=torch.float32, device=device)
     res = torch.empty((1,), dtype=torch.float32, device=device)
+    iscratch, fscratch = _scratch(n, r, device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.phyx_contact_solve_streamed(
@@ -145,15 +197,66 @@ def solve_contacts_streamed(
             res.data_ptr(), num_contacts.data_ptr(),
             None if num_joints is None else num_joints.data_ptr(),
             tols.data_ptr(), n, c_cap, r - c_cap, int(vel_iters),
-            int(pos_iters), stream)
+            int(pos_iters), iscratch.data_ptr(), fscratch.data_ptr(),
+            int(smem_last), int(smem_cols), stream)
     if err != 0:
         raise RuntimeError(f"streamed solve kernel launch failed: CUDA "
                            f"error {err}")
-    solve_contacts_streamed.launches += 1
     return body_out, acc, res
 
 
-solve_contacts_streamed.launches = 0
+def solve_in_device_memory(body_flat, b1, b2, con_flat, warm_flat,
+                           num_contacts, vel_iters, pos_iters,
+                           num_joints=None, c_cap=None, tols=None):
+    """The kernel with both per-body arrays in device memory, whatever
+    ``N``: the placement the wrapper takes above N = 51,200 (and its
+    columns' above 19,285), for checking it on the card at any frame
+    against the wrapper.  CUDA tensors only; not counted in the
+    launches."""
+    args = (body_flat, b1, b2, con_flat, warm_flat, num_contacts, vel_iters,
+            pos_iters, num_joints, c_cap)
+    n, r, c_cap, tols = check_inputs(*args, tols)
+    if body_flat.device.type != "cuda":
+        raise ValueError("solve_in_device_memory launches the kernel: CUDA "
+                         "tensors only")
+    return _launch(*args[:9], c_cap, tols, smem_last=False, smem_cols=False)
+
+
+def prepass(body_flat, b1, b2, con_flat, warm_flat, num_contacts,
+            num_joints=None, c_cap=None, smem_last=None, **_) -> dict:
+    """The kernel's pre-pass alone, on CUDA tensors (the solve's own
+    arguments; the passes are ignored): for timing it apart from the solve
+    and checking its levels against ``visit_levels``.  Not counted in
+    ``solve_contacts_streamed.launches``.  Returns device tensors:
+    ``level`` (R,) int32, each live visit's level in serial order (the
+    first ``offsets[-1]`` entries), ``offsets`` (R + 1,) int32 (the first
+    ``n_levels + 1`` entries), ``n_levels`` (1,) int32, ``slots`` (R,) int32
+    the row slot of each record in level order (the order inside a level
+    is the scatter's).  ``smem_last`` overrides where the last-level array
+    sits (default: ``placement``)."""
+    n, r, c_cap, _ = check_inputs(body_flat, b1, b2, con_flat, warm_flat,
+                                  num_contacts, 0, 0, num_joints, c_cap,
+                                  None)
+    device = body_flat.device
+    if device.type != "cuda":
+        raise ValueError("prepass launches the kernel: CUDA tensors only")
+    if smem_last is None:
+        smem_last = placement(n)["smem_last"]
+    lib, _ = build()
+    iscratch, fscratch = _scratch(n, r, device)
+    with torch.cuda.device(device):
+        err = lib.phyx_visit_levels(
+            b1.data_ptr(), b2.data_ptr(), con_flat.data_ptr(),
+            warm_flat.data_ptr(), body_flat.data_ptr(),
+            num_contacts.data_ptr(),
+            None if num_joints is None else num_joints.data_ptr(), n, c_cap,
+            r - c_cap, iscratch.data_ptr(), fscratch.data_ptr(),
+            int(smem_last), torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"level pre-pass launch failed: CUDA error {err}")
+    return dict(level=iscratch[:r], offsets=iscratch[2 * r:3 * r + 1],
+                n_levels=iscratch[3 * r + 1:3 * r + 2],
+                slots=iscratch[3 * r + 2:4 * r + 2])
 
 
 def solve_contacts_streamed_plain(
@@ -401,3 +504,282 @@ def plain_walk(table, con_rows, warm_rows, visits, vel_iters: int,
     if slots:
         acc_out[slots] = torch.stack([torch.stack(a) for a in acc])
     return table_out.reshape(-1), acc_out.reshape(-1), res.reshape(1)
+
+
+def visit_levels(b1, b2, num_contacts, num_joints, c_cap: int, n: int):
+    """The kernel's pre-pass as torch operations on the ids' device: the
+    live visits in serial order (contact slots [0, num), then joint slots
+    [c_cap, c_cap + numj)), ids clamped into [0, n) as the kernel clamps
+    them, and each visit's level, ``level(k) = 1 + max(last[i], last[j])``
+    over the visits before it (``last[b]``: the level of the latest visit
+    of body b, 0 before any).  Visits of one level touch disjoint bodies,
+    and two visits that share a body keep their serial order, so running
+    the levels one after another, each level's visits in any order,
+    repeats the serial solve operation for operation.
+
+    Computed without the serial walk: each visit's predecessors are the
+    previous visits of its two bodies (a sort of the (body, visit)
+    endpoints), and the levels are relaxed to their fixed point, one
+    iteration per level.  Returns a dict: ``slots``, ``i``, ``j``
+    (visits,) int64; ``level`` (visits,) int64, 1-based; ``n_levels``;
+    ``order`` (visits,) int64, the visits by level, serial order inside a
+    level (a stable sort); ``offsets`` (n_levels + 1,) int64, level l's
+    visits at ``order[offsets[l]:offsets[l + 1]]``."""
+    device = b1.device
+    r = b1.numel()
+    num = min(max(int(num_contacts), 0), c_cap)
+    numj = 0 if num_joints is None else min(max(int(num_joints), 0),
+                                            r - c_cap)
+    slots = torch.cat([torch.arange(num, device=device),
+                       torch.arange(c_cap, c_cap + numj, device=device)])
+    i = torch.clamp(b1[slots].long(), 0, n - 1)
+    j = torch.clamp(b2[slots].long(), 0, n - 1)
+    v = slots.numel()
+    visit = torch.arange(v, device=device)
+    # endpoints sorted by (body, visit, side): an endpoint's predecessor is
+    # the endpoint before it on the same body, unless that is the other
+    # end of its own visit (a self pair), which adds no constraint
+    body = torch.cat([i, j])
+    owner = torch.cat([visit, visit])
+    key = (body * v + owner) * 2 + torch.cat([torch.zeros_like(visit),
+                                              torch.ones_like(visit)])
+    srt = torch.argsort(key)
+    sb, sv = body[srt], owner[srt]
+    pred = torch.full_like(sv, v)                 # v: "no predecessor"
+    prev_ok = (sb[1:] == sb[:-1]) & (sv[1:] != sv[:-1])
+    pred[1:] = torch.where(prev_ok, sv[:-1], v)
+    pred_end = torch.empty_like(pred)
+    pred_end[srt] = pred
+    p1, p2 = pred_end[:v], pred_end[v:]
+    level = torch.ones(v + 1, dtype=torch.int64, device=device)
+    level[v] = 0
+    while v:
+        new = 1 + torch.maximum(level[p1], level[p2])
+        if torch.equal(new, level[:v]):
+            break
+        level[:v] = new
+    level = level[:v]
+    n_levels = int(level.max()) if v else 0
+    order = torch.sort(level, stable=True).indices
+    counts = torch.bincount(level - 1, minlength=n_levels)
+    offsets = torch.zeros(n_levels + 1, dtype=torch.int64, device=device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    return dict(slots=slots, i=i, j=j, level=level, n_levels=n_levels,
+                order=order, offsets=offsets)
+
+
+def solve_contacts_levels_plain(
+    body_flat, b1, b2, con_flat, warm_flat, num_contacts,
+    vel_iters: int, pos_iters: int, num_joints=None, c_cap=None, tols=None,
+):
+    """The second plain version: the solve of ``solve_contacts_streamed``
+    run level by level over ``visit_levels``, each level's visits of one
+    kind (contact, revolute joint, distance joint) as one vectorised torch
+    operation per scalar operation of the visit, in the visit's order.
+    Visits of one level touch disjoint bodies, so this is the serial
+    solve's arithmetic on the serial solve's operands: it equals
+    ``solve_contacts_streamed_plain`` to the bit (a NaN residual may carry
+    another payload).  It reads the counts and levels back to the host:
+    for tests and for comparison with the kernel."""
+    device = body_flat.device
+    n = body_flat.numel() // 8
+    r = b1.numel()
+    c_cap = r if c_cap is None else int(c_cap)
+    if tols is None:
+        tols = torch.zeros((2,), dtype=torch.float32, device=device)
+    vtol, ptol = tols.unbind()
+    lv = visit_levels(b1, b2, num_contacts, num_joints, c_cap, n)
+    con_rows = con_flat.reshape(r, 12)
+    warm_rows = warm_flat.reshape(r, 2)
+    # kind per visit: 0 contact, 1 revolute joint, 2 distance joint
+    kind = torch.where(lv["slots"] < c_cap, 0,
+                       torch.where(con_rows[lv["slots"], 11] == 1.0, 1, 2))
+    # each level's visits grouped by kind: (kind, slots, i, j, con columns,
+    # warm columns), serial order inside a group
+    levels = []
+    order = lv["order"]
+    key = lv["level"][order] * 3 + kind[order]
+    order = order[torch.sort(key, stable=True).indices]
+    counts = torch.bincount(lv["level"][order] * 3 + kind[order] - 3,
+                            minlength=3 * lv["n_levels"]).tolist()
+    start = 0
+    for lvl in range(lv["n_levels"]):
+        groups = []
+        for k in range(3):
+            m = counts[3 * lvl + k]
+            if m:
+                sel = order[start:start + m]
+                s = lv["slots"][sel]
+                groups.append((k, s, lv["i"][sel], lv["j"][sel],
+                               con_rows[s].unbind(1), warm_rows[s].unbind(1)))
+                start += m
+        levels.append(groups)
+
+    cols = [c.clone() for c in body_flat.reshape(n, 8).unbind(1)]
+    acc = torch.zeros((r, 4), dtype=torch.float32, device=device)
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+
+    def apply(i, j, g, px, py, off, im1, ii1, im2, ii2):
+        # every body value read afresh, as the kernels read it: body j's
+        # columns after body i's writes (a self pair sees them)
+        r1x, r1y, r2x, r2y = g
+        cols[off][i] = cols[off][i] - px * im1
+        cols[off + 1][i] = cols[off + 1][i] - py * im1
+        cols[off + 2][i] = cols[off + 2][i] - ii1 * (r1x * py - r1y * px)
+        cols[off][j] = cols[off][j] + px * im2
+        cols[off + 1][j] = cols[off + 1][j] + py * im2
+        cols[off + 2][j] = cols[off + 2][j] + ii2 * (r2x * py - r2y * px)
+
+    def masses(i, j):
+        return cols[3][i], cols[4][i], cols[3][j], cols[4][j]
+
+    def arms(k, c):
+        return c[0:4] if k == 1 else c[2:6]
+
+    def warm_pass(group):
+        k, s, i, j, c, w = group
+        if k == 0:
+            nx, ny = c[0], c[1]
+            wn, wt = w
+            px = nx * wn - ny * wt
+            py = ny * wn + nx * wt
+            apply(i, j, c[2:6], px, py, 0, *masses(i, j))
+            acc[s, 0] = wn
+            acc[s, 1] = wt
+            return
+        wx, wy = w
+        if k == 1:
+            px, py = wx, wy
+        else:
+            px, py = c[0] * wx, c[1] * wx
+        apply(i, j, arms(k, c), px, py, 0, *masses(i, j))
+        acc[s, 0] = wx
+        acc[s, 1] = wy if k == 1 else zero
+
+    def vel_pass(group):
+        """Returns the group's max(|dn|, |dt|) or max(|px|, |py|)."""
+        k, s, i, j, c, _ = group
+        if k == 0:
+            nx, ny, r1x, r1y, r2x, r2y, mn, mt, fr, dstv, _, ctn = c
+            im1, ii1, im2, ii2 = masses(i, j)
+            vx1, vy1, w1 = cols[0][i], cols[1][i], cols[2][i]
+            vx2, vy2, w2 = cols[0][j], cols[1][j], cols[2][j]
+            dvx = vx2 - w2 * r2y - vx1 + w1 * r1y
+            dvy = vy2 + w2 * r2x - vy1 - w1 * r1x
+            vn = nx * dvx + ny * dvy
+            vt = -ny * dvx + nx * dvy
+            d = (dstv - vn) * mn
+            a = acc[s, 0]
+            na = torch.maximum(a + d, zero)
+            dn = na - a
+            acc[s, 0] = na
+            d = -(vt + ctn * dn) * mt
+            a = acc[s, 1]
+            mf = fr * na
+            ta = torch.minimum(torch.maximum(a + d, -mf), mf)
+            dt = ta - a
+            acc[s, 1] = ta
+            px = nx * dn - ny * dt
+            py = ny * dn + nx * dt
+            cols[0][i] = vx1 - px * im1
+            cols[1][i] = vy1 - py * im1
+            cols[2][i] = w1 - ii1 * (r1x * py - r1y * px)
+            cols[0][j] = vx2 + px * im2
+            cols[1][j] = vy2 + py * im2
+            cols[2][j] = w2 + ii2 * (r2x * py - r2y * px)
+            return torch.maximum(torch.abs(dn), torch.abs(dt)).max()
+        r1x, r1y, r2x, r2y = arms(k, c)
+        vx1, vy1, w1 = cols[0][i], cols[1][i], cols[2][i]
+        vx2, vy2, w2 = cols[0][j], cols[1][j], cols[2][j]
+        dvx = vx2 - w2 * r2y - vx1 + w1 * r1y
+        dvy = vy2 + w2 * r2x - vy1 - w1 * r1x
+        if k == 1:          # impulse -(M dv)
+            px = -(c[4] * dvx + c[5] * dvy)
+            py = -(c[5] * dvx + c[6] * dvy)
+            acc[s, 0] = acc[s, 0] + px
+            acc[s, 1] = acc[s, 1] + py
+        else:               # impulse -m (n.dv) n
+            nx, ny = c[0], c[1]
+            dd = -c[6] * (nx * dvx + ny * dvy)
+            px = nx * dd
+            py = ny * dd
+            acc[s, 0] = acc[s, 0] + dd
+            acc[s, 1] = acc[s, 1] + 0.0
+        apply(i, j, (r1x, r1y, r2x, r2y), px, py, 0, *masses(i, j))
+        return torch.maximum(torch.abs(px), torch.abs(py)).max()
+
+    def pos_pass(group):
+        """Returns the group's max |d| or max(|px|, |py|)."""
+        k, s, i, j, c, _ = group
+        if k == 0:
+            nx, ny, r1x, r1y, r2x, r2y, mn = c[:7]
+            ddv = c[10]
+            im1, ii1, im2, ii2 = masses(i, j)
+            px1, py1, q1 = cols[5][i], cols[6][i], cols[7][i]
+            px2, py2, q2 = cols[5][j], cols[6][j], cols[7][j]
+            dvx = px2 - q2 * r2y - px1 + q1 * r1y
+            dvy = py2 + q2 * r2x - py1 - q1 * r1x
+            vn = nx * dvx + ny * dvy
+            d = (ddv - vn) * mn
+            a = acc[s, 2]
+            na = torch.maximum(a + d, zero)
+            d = na - a
+            acc[s, 2] = na
+            ix = nx * d
+            iy = ny * d
+            cols[5][i] = px1 - ix * im1
+            cols[6][i] = py1 - iy * im1
+            cols[7][i] = q1 - ii1 * (r1x * iy - r1y * ix)
+            cols[5][j] = px2 + ix * im2
+            cols[6][j] = py2 + iy * im2
+            cols[7][j] = q2 + ii2 * (r2x * iy - r2y * ix)
+            return torch.abs(d).max()
+        r1x, r1y, r2x, r2y = arms(k, c)
+        px1, py1, q1 = cols[5][i], cols[6][i], cols[7][i]
+        px2, py2, q2 = cols[5][j], cols[6][j], cols[7][j]
+        dvx = px2 - q2 * r2y - px1 + q1 * r1y
+        dvy = py2 + q2 * r2x - py1 - q1 * r1x
+        if k == 1:          # toward the target (dstx, dsty)
+            ex = c[7] - dvx
+            ey = c[8] - dvy
+            px = c[4] * ex + c[5] * ey
+            py = c[5] * ex + c[6] * ey
+            acc[s, 2] = acc[s, 2] + px
+            acc[s, 3] = acc[s, 3] + py
+        else:               # toward the scalar target along n
+            nx, ny = c[0], c[1]
+            dd = c[6] * (c[7] - (nx * dvx + ny * dvy))
+            px = nx * dd
+            py = ny * dd
+            acc[s, 2] = acc[s, 2] + dd
+            acc[s, 3] = acc[s, 3] + 0.0
+        apply(i, j, (r1x, r1y, r2x, r2y), px, py, 5, *masses(i, j))
+        return torch.maximum(torch.abs(px), torch.abs(py)).max()
+
+    for groups in levels:
+        for group in groups:
+            warm_pass(group)
+
+    res = zero
+    converged = False
+    for _ in range(vel_iters):
+        if converged:
+            continue
+        res = zero
+        for groups in levels:
+            for group in groups:
+                res = torch.maximum(res, vel_pass(group))
+        converged = bool(res < vtol)
+
+    converged = False
+    for _ in range(pos_iters):
+        if converged:
+            continue
+        pres = zero
+        for groups in levels:
+            for group in groups:
+                pres = torch.maximum(pres, pos_pass(group))
+        converged = bool(pres < ptol)
+
+    return (torch.stack(cols, 1).reshape(-1), acc.reshape(-1),
+            res.reshape(1))

@@ -19,7 +19,8 @@ from phyx_tpu_torch import solver
 from phyx_tpu_torch.config import SimConfig
 from phyx_tpu_torch.convert import state_from_numpy
 from phyx_tpu_torch.kernels.contact_solver_streamed import (
-    solve_contacts_streamed, solve_contacts_streamed_plain)
+    solve_contacts_levels_plain, solve_contacts_streamed,
+    solve_contacts_streamed_plain)
 from phyx_tpu_torch.narrowphase import narrowphase_with_props
 from phyx_tpu_torch.step import compact_contacts, contact_stage
 
@@ -102,8 +103,8 @@ def _jax_kernel(vel_iters, pos_iters, vel_gated, pos_gated):
         vel_gated=vel_gated, pos_gated=pos_gated))
 
 
-def run_both(args):
-    ours = solve_contacts_streamed_plain(**args)
+def run_both(args, plain=solve_contacts_streamed_plain):
+    ours = plain(**args)
     tols = args["tols"]
     # the JAX kernel's static gate flags: both on whenever thresholds are
     # given (an ungated kind's 0.0 threshold never fires)
@@ -119,13 +120,19 @@ def run_both(args):
     return ours, [np.asarray(r) for r in ref]
 
 
-@pytest.mark.parametrize("gated", [False, True])
-def test_plain_kernel_matches_jax_streamed(gated):
+@pytest.mark.parametrize("gated,plain", [
+    pytest.param(False, solve_contacts_streamed_plain, id="False"),
+    pytest.param(True, solve_contacts_streamed_plain, id="True"),
+    # the level-by-level plain version
+    pytest.param(False, solve_contacts_levels_plain, id="levels-False"),
+    pytest.param(True, solve_contacts_levels_plain, id="levels-True"),
+])
+def test_plain_kernel_matches_jax_streamed(gated, plain):
     args = packed_inputs(1, gated)
     assert args["b1"].shape[0] >= 2048
     num = int(args["num_contacts"])
     assert num > 150
-    ours, ref = run_both(args)
+    ours, ref = run_both(args, plain)
     for name, a, b in zip(("body", "acc", "residual"), ref, ours):
         np.testing.assert_allclose(a, b.numpy(), atol=1e-5, rtol=0,
                                    err_msg=name)

@@ -257,8 +257,7 @@ class _Capacity:
 def test_dispatch_follows_reference(name, backend, n, max_pairs,
                                     monkeypatch):
     """``broadphase`` sends each config where the reference does: its
-    branches are stubbed to report their name.  The reference's windowed
-    sweep maps onto the grid (a recorded decision)."""
+    branches are stubbed to report their name."""
     def stub(module, fn):
         monkeypatch.setattr(module, fn, lambda *a, **k: fn)
 
@@ -267,13 +266,13 @@ def test_dispatch_follows_reference(name, backend, n, max_pairs,
                "broadphase_sap"):
         stub(jbp, fn)
     for fn in ("broadphase_n2", "broadphase_sap_kernel",
-               "broadphase_sap_grid", "broadphase_sap_tiled"):
+               "broadphase_sap_grid", "broadphase_sap_tiled",
+               "broadphase_sap"):
         stub(bp, fn)
     kw = dict(max_bodies=n, max_pairs=max_pairs, broadphase=name,
               solver_backend=backend)
     ref = jbp.broadphase(_Capacity(n), JaxConfig(**kw))
-    expected = dict(broadphase_sap="broadphase_sap_grid").get(ref, ref)
-    assert bp.broadphase(_Capacity(n), SimConfig(**kw)) == expected
+    assert bp.broadphase(_Capacity(n), SimConfig(**kw)) == ref
     above = bp.sweep_kernel_smem_bytes(n, max_pairs) > 900 * 1024
     if name == "sap" and backend == "pallas":
         assert ref == ("broadphase_sap_tiled" if above
