@@ -12,17 +12,20 @@ Phases; any failure raises and the script exits non-zero:
              level over the visits' dependency graph), K2, the
              fused solve (state in shared memory), in one source K3 and
              K5, the slab-major and the routed tiled solves (the x-rank
-             embedded body table in device memory), K4, the
-             slab-windowed sweep, and in one source K6 and K7, the chunked
-             and the serial sweep emission (each: count, prefix sum,
-             emit).
+             embedded body table, run level by level with K1's schedule),
+             K4, the slab-windowed sweep, and in one source K6 and K7, the
+             chunked and the serial sweep emission (each: count, prefix
+             sum, emit).
 3. compare — each solve kernel against the plain torch version on the
              packed solve input of small frames on the card, gates off and
              on: K1 and K2 on a 200-box pile (contacts only), a loaded
              bridge (revolute rows and contacts) and a net (distance rows);
              K3 and K5 on a 300-box pile over three slabs and a 200-box
              pile with a moving static, K5 on a tiled loaded bridge and
-             net.  Body rows, accumulators and residual must be equal
+             net, each against both its serial and its levels plain
+             version, in every placement of its per-row arrays, and its
+             pre-pass against ``slab_levels``.  Body rows, accumulators
+             and residual must be equal
              (exact float32 equality), and K1 must equal K2.  K4 against
              its plain version on a two-slab banded 64-env mega-scene
              (true-x accept on and off), the same in the segmented layout,
@@ -74,36 +77,41 @@ Phases; any failure raises and the script exits non-zero:
              K2 against the plain version at the frame's shapes, gates off
              and on.
 7. pile20k — the 20k pile (cap 32,768, 64,000 pairs: the tiled tier,
-             3 slabs of the default 16,384-row stride): 150-frame settle
-             (the bench's 300, cut for the script's time) without host
-             waits, slope timing, K3 once a frame and no
-             other kernel; every overflow counter 0, the 0.6 penetration
-             bar, finite state; stage times; K3 against the plain version
-             at the frame's shapes (warm + 1 velocity pass) and timed on
-             all passes; K1 timed on the same frame compacted; one frame
-             through K3 and one through K5 (``tiled_routing=False``)
-             without host waits, K5 launched once, within 5e-3 of the K3
-             frame; K5 against its plain version at that frame's routed
-             shapes (warm + 1 velocity pass) and timed on all passes.
-8. envs128 — bench row E cut to 128 envs x 256 boxes (bench.py's
-             build_envs: band grid of 8 y-bands x 16 x-cells, banded keys,
-             cap 33,792, 104,960 pairs), ``broadphase="sap"`` and the
-             pallas backend, which take K4 and K3: 240-frame settle without
-             host waits, slope timing, K4 and K3 once a frame each and no
-             other kernel; every overflow counter 0, penetration ratio
-             <= 0.2, finite state; env-steps/s beside the reference's
-             per-env fingerprint; stage times; K4 against its plain version
-             at the settled frame, both timed (K4's two launches and prefix
-             sum on device behind a sleep kernel, and the wrapper's pace);
-             K3 against its plain version at that frame (warm + 1 velocity
-             pass) and timed on all passes.
+             3 slabs of the default 16,384-row stride): the bench's
+             300-frame settle without host waits, slope timing, K3 once a
+             frame and no other kernel; every overflow counter 0, the 0.6
+             penetration bar, finite state; stage times; K3 against the
+             serial plain version at the frame's shapes (warm + 1 velocity
+             pass) and against the levels plain version on all passes,
+             its pre-pass against ``slab_levels`` (last-level array in
+             shared and in device memory), every placement of its per-row
+             arrays equal to the wrapper's, the full solve and the
+             pre-pass timed, levels a pass and ns a level; K1 timed on the
+             same frame compacted; one frame through K3 and one through K5
+             (``tiled_routing=False``) without host waits, K5 launched
+             once, within 5e-3 of the K3 frame; K5 at that frame's routed
+             shapes checked and timed as K3.
+8. envs1024 — bench row E at the reference's 1024 envs x 256 boxes
+             (bench.py's build_envs: band grid of 8 y-bands x 128 x-cells,
+             banded keys, cap 264,192, 839,168 pairs, 17 slabs),
+             ``broadphase="sap"`` and the pallas backend, which take K4
+             and K3: 240-frame settle without host waits, slope timing, K4
+             and K3 once a frame each and no other kernel; every overflow
+             counter 0, penetration ratio <= 0.2, finite state;
+             env-steps/s beside the reference's per-env fingerprint; stage
+             times; K4 against its plain version at the settled frame,
+             both timed (K4's two launches and prefix sum on device behind
+             a sleep kernel, and the wrapper's pace); K3 against its
+             levels plain version on all passes there (the serial one
+             would take ~10 minutes), its pre-pass and placements checked
+             and timed as at the 20k frame.
 9. envs64  — bench row E at bench.py's own default of 64 envs x 256 boxes
              (cap 17,408, 52,736 pairs): ``"sap"`` within the reference's
              sweep budget takes K6, the capacity the streamed solve K1:
              240-frame settle without host waits, slope timing, K6 and K1
              once a frame each and no other kernel; every overflow counter
              0, penetration ratio <= 0.2, finite state; env-steps/s beside
-             the 128-env scene's; stage times; K6 against its plain version
+             the 1024-env scene's; stage times; K6 against its plain version
              at the settled frame and timed (device time behind a sleep
              kernel); K1 against its plain version (warm + 1 + 1 passes)
              and timed on all passes, and its level checks and its
@@ -329,8 +337,10 @@ def _tiled_frames():
 
 
 def phase_compare_tiled() -> dict:
-    """K3 and K5 against their plain version on small tiled frames, gates
-    off and on.  Returns, per kernel, the max abs difference and, on the
+    """K3 and K5 on small tiled frames, gates off and on: against both
+    plain versions (serial and levels), their pre-pass against
+    ``slab_levels``, and every placement of their per-row arrays against
+    the wrapper's.  Returns, per kernel, the max abs difference and, on the
     first frame (ungated), its time, the plain version's and the bound."""
     from phyx_tpu_torch.step import solve_inputs
     wrappers = _wrappers()
@@ -343,23 +353,31 @@ def phase_compare_tiled() -> dict:
                 args = solve_inputs(st, c, "tiled2" if name == "K3"
                                     else "tiled")
                 err, plain_ms = _compare(wrappers[name], args)
-                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                lev = _equals_levels_plain(name, args, f"a {what}")
+                placed = _tiled_placed(name, args, f"a {what}")
+                rec["max_abs_err"] = max(
+                    rec["max_abs_err"], err, lev["max_abs_err_levels_plain"],
+                    placed["max_abs_err_placements"])
                 if "ms" not in rec:
                     walked = _walked(name, args)
                     rec.update(ms=_kernel_ms(wrappers[name], args, reps=5),
                                plain_ms=plain_ms, frame=what,
                                walked_slots=walked,
                                **_bound_slabs(args, walked))
+            levels = _tiled_levels(name, args, f"a {what}")["levels"]
+            print(f"# compare: {name} == serial plain == levels plain on a "
+                  f"{what}, gates off and on, in every placement; pre-pass "
+                  f"== slab_levels ({levels} levels a pass)", flush=True)
         # K5 is compared last on every frame: its per-slab counts
         n_slabs = args["n_slabs"]
         counts = args["slab_counts"].tolist()
         used = sum(x > 0 for x in counts[:n_slabs])
         if what.startswith("300") and used < 3:
             raise AssertionError(f"{what}: contacts in {used} slabs")
-        print(f"# compare: {' and '.join(names)} == plain on a {what} "
-              f"({used} of {n_slabs} slabs with contacts, "
-              f"{sum(counts[n_slabs:])} joint rows), gates off and on; max "
-              f"abs diff { {k: v['max_abs_err'] for k, v in out.items()} }",
+        print(f"# compare: {' and '.join(names)} on a {what} ({used} of "
+              f"{n_slabs} slabs with contacts, {sum(counts[n_slabs:])} joint "
+              f"rows); max abs diff "
+              f"{ {k: v['max_abs_err'] for k, v in out.items()} }",
               flush=True)
     return out
 
@@ -995,68 +1013,86 @@ def _kernel_at_frame(st, cfg, wrapper, name) -> dict:
                 joints=numj)
 
 
+def _check_prepass(dev: dict, lv: dict, r: int) -> bool:
+    """A kernel's pre-pass output ``dev`` (``prepass`` or ``tiled_prepass``)
+    against the torch pre-pass ``lv`` (``visit_levels`` or
+    ``slab_levels``): each visit's level, the level offsets, and each
+    level's records a permutation of its rows (``r``: the row slots)."""
+    import torch
+    v, n_levels = lv["slots"].numel(), lv["n_levels"]
+    off = lv["offsets"]
+    if not (int(dev["n_levels"][0]) == n_levels
+            and torch.equal(dev["level"][:v].long(), lv["level"])
+            and torch.equal(dev["offsets"][:n_levels + 1].long(), off)):
+        return False
+    # (level, slot) of every record, sorted, against the plain buckets
+    pos_level = torch.repeat_interleave(
+        torch.arange(n_levels, device=off.device), off.diff())
+    got = torch.sort(pos_level * r + dev["slots"][:v].long()).values
+    ref = torch.sort(pos_level * r + lv["slots"][lv["order"]]).values
+    return torch.equal(got, ref)
+
+
+def _level_widths(lv: dict) -> dict:
+    import torch
+    widths = lv["offsets"].diff().double()
+    if not widths.numel():
+        return dict(width_p50=0.0, width_p90=0.0, width_p99=0.0, width_max=0)
+    q = torch.quantile(widths, torch.tensor(
+        [0.5, 0.9, 0.99], dtype=torch.float64, device=widths.device))
+    return dict(width_p50=float(q[0]), width_p90=float(q[1]),
+                width_p99=float(q[2]), width_max=int(widths.max()))
+
+
 def _k1_levels(args, what: str) -> dict:
     """K1's level schedule at a frame: the kernel's pre-pass against
-    ``visit_levels`` (each visit's level, the level offsets, and each
-    level's records a permutation of its rows), the levels per pass and
-    their widths, the pre-pass timed alone (CUDA events over repeated
-    launches).  Not a launch of K1's wrapper."""
-    import torch
+    ``visit_levels`` (``_check_prepass``), with its last-level array as the
+    wrapper places it and in device memory, the levels per pass and their
+    widths, the pre-pass timed alone (CUDA events over repeated launches).
+    Not a launch of K1's wrapper."""
     from phyx_tpu_torch.kernels.contact_solver_streamed import (prepass,
                                                                  visit_levels)
     n = args["body_flat"].numel() // 8
     lv = visit_levels(args["b1"], args["b2"], args["num_contacts"],
                       args["num_joints"], args["c_cap"], n)
-    v, n_levels = lv["slots"].numel(), lv["n_levels"]
-    off = lv["offsets"]
     # the wrapper's placement of the last-level array, then device memory
     for smem_last in (None, False):
         dev = prepass(**args, smem_last=smem_last)
         _sync()
-        ok = (int(dev["n_levels"][0]) == n_levels
-              and torch.equal(dev["level"][:v].long(), lv["level"])
-              and torch.equal(dev["offsets"][:n_levels + 1].long(), off))
-        if ok:
-            # (level, slot) of every record, sorted, against the plain
-            # buckets
-            pos_level = torch.repeat_interleave(
-                torch.arange(n_levels, device=off.device), off.diff())
-            r = args["b1"].numel()
-            got = torch.sort(pos_level * r + dev["slots"][:v].long()).values
-            ref = torch.sort(pos_level * r + lv["slots"][lv["order"]]).values
-            ok = torch.equal(got, ref)
-        if not ok:
+        if not _check_prepass(dev, lv, args["b1"].numel()):
             raise AssertionError(f"K1's pre-pass (smem_last {smem_last}) "
                                  f"differs from visit_levels at {what}")
-    widths = off.diff().double()
-    q = torch.quantile(widths, torch.tensor(
-        [0.5, 0.9, 0.99], dtype=torch.float64, device=widths.device))
-    out = dict(levels=n_levels, visits=v,
-               width_p50=float(q[0]), width_p90=float(q[1]),
-               width_p99=float(q[2]), width_max=int(widths.max()),
+    out = dict(levels=lv["n_levels"], visits=lv["slots"].numel(),
+               **_level_widths(lv),
                prepass_ms=_kernel_ms(prepass, args, reps=20))
-    print(f"# K1 levels at {what}: {n_levels} levels a pass over {v} "
-          f"visits, widths p50 {out['width_p50']} p90 {out['width_p90']} "
-          f"p99 {out['width_p99']} max {out['width_max']}; pre-pass "
-          f"{out['prepass_ms']:.4f} ms; equal to visit_levels, the "
-          "last-level array in shared and in device memory", flush=True)
+    print(f"# K1 levels at {what}: {out['levels']} levels a pass over "
+          f"{out['visits']} visits, widths p50 {out['width_p50']} p90 "
+          f"{out['width_p90']} p99 {out['width_p99']} max "
+          f"{out['width_max']}; pre-pass {out['prepass_ms']:.4f} ms; equal "
+          "to visit_levels, the last-level array in shared and in device "
+          "memory", flush=True)
     return out
 
 
-def _k1_equals_levels_plain(args, what: str) -> dict:
-    """K1 against ``solve_contacts_levels_plain`` on all the frame's passes
-    (ungated): equal to the bit.  Returns the max abs difference and the
-    plain version's ms."""
+def _equals_levels_plain(name: str, args, what: str) -> dict:
+    """K1, K3 or K5 against its levels plain version on all the frame's
+    passes, as gated as the frame is: equal to the bit.  Returns the max
+    abs difference and the plain version's ms."""
     from phyx_tpu_torch.kernels.contact_solver_streamed import \
         solve_contacts_levels_plain
-    got = _wrappers()["K1"](**args)
+    from phyx_tpu_torch.kernels.contact_solver_tiled import (
+        solve_contacts_tiled2_levels_plain, solve_contacts_tiled_levels_plain)
+    plain = dict(K1=solve_contacts_levels_plain,
+                 K3=solve_contacts_tiled2_levels_plain,
+                 K5=solve_contacts_tiled_levels_plain)[name]
+    got = _wrappers()[name](**args)
     _sync()
     t0 = time.perf_counter()
-    ref = solve_contacts_levels_plain(**args)
+    ref = plain(**args)
     _sync()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    err = _equal("K1 vs the levels plain version", got, ref)
-    print(f"# compare: K1 == solve_contacts_levels_plain at {what}, all "
+    err = _equal(f"{name} vs its levels plain version at {what}", got, ref)
+    print(f"# compare: {name} == {plain.__name__} at {what}, all "
           f"{1 + args['vel_iters'] + args['pos_iters']} passes; max abs "
           f"diff {err}; the plain version {plain_ms:.0f} ms", flush=True)
     return dict(max_abs_err_levels_plain=err, levels_plain_ms=plain_ms)
@@ -1074,7 +1110,7 @@ def _k1_level_checks(k: dict, what: str) -> dict:
                                          + args["pos_iters"])),
                 level_widths={key: lv[key] for key in (
                     "width_p50", "width_p90", "width_p99", "width_max")},
-                **_k1_equals_levels_plain(args, what),
+                **_equals_levels_plain("K1", args, what),
                 **_k1_in_device_memory(args, what))
 
 
@@ -1099,6 +1135,93 @@ def _k1_in_device_memory(args, what: str) -> dict:
           f"at {what}, all passes, gated and ungated; max abs diff {err}; "
           f"{ms:.4f} ms a full solve", flush=True)
     return dict(max_abs_err_device_memory=err, ms_full_solve_device_memory=ms)
+
+
+def _tiled_levels(name: str, args, what: str) -> dict:
+    """K3's or K5's level schedule at a frame: the kernel's pre-pass
+    against ``slab_levels`` (``_check_prepass``), its last-level array in
+    shared memory where the table's rows allow and in device memory, the
+    levels a pass and their widths, the pre-pass timed alone.  Not a launch
+    of the wrapper."""
+    from phyx_tpu_torch.kernels.contact_solver_streamed import placement
+    from phyx_tpu_torch.kernels.contact_solver_tiled import (slab_levels,
+                                                             tiled_prepass)
+    lv = slab_levels(args)
+    npad = args["body_flat"].numel() // 8
+    for smem_last in {placement(npad)["smem_last"], False}:
+        dev = tiled_prepass(args, smem_last=smem_last)
+        _sync()
+        if not _check_prepass(dev, lv, args["b12"].numel() // 2):
+            raise AssertionError(f"{name}'s pre-pass (smem_last "
+                                 f"{smem_last}) differs from slab_levels at "
+                                 f"{what}")
+    return dict(levels=lv["n_levels"], visits=lv["slots"].numel(),
+                **_level_widths(lv),
+                prepass_ms=_kernel_ms(lambda **a: tiled_prepass(a), args,
+                                      reps=10))
+
+
+def _place_key(place: dict) -> str:
+    """A placement of the tiled kernels' per-row arrays, as a name."""
+    where = {True: "shared", False: "device"}
+    return (f"{where[place['smem_last']]}_last_"
+            f"{where[place['smem_cols']]}_cols")
+
+
+def _tiled_placed(name: str, args, what: str) -> dict:
+    """K3 or K5 in every placement the table's rows allow
+    (``tiled_placements``) against the wrapper's own, on all passes, gated
+    as the frame is and ungated: equal to the bit.  Then each timed.  These
+    launches are comparisons, made after the main path's counts were
+    read."""
+    from phyx_tpu_torch.kernels.contact_solver_tiled import (
+        solve_tiled_placed, tiled_placements)
+    places = tiled_placements(args["body_flat"].numel() // 8)
+    err = 0.0
+    for tols in (args.get("tols"), None):
+        ref = _wrappers()[name](**dict(args, tols=tols))
+        for place in places[1:]:
+            got = solve_tiled_placed(dict(args, tols=tols), **place)
+            _sync()
+            err = max(err, _equal(f"{name} placed {place} vs the wrapper at "
+                                  f"{what}", got, ref))
+    ms = {_place_key(p): _kernel_ms(lambda **a: solve_tiled_placed(a, **p),
+                                    args, reps=3)
+          for p in places}
+    return dict(placement=places[0], max_abs_err_placements=err,
+                ms_full_solve_placements=ms)
+
+
+def _tiled_full(name: str, args, what: str) -> dict:
+    """At a frame of K3 or K5 on all its passes: the kernel against its
+    levels plain version (``_equals_levels_plain``), its pre-pass against
+    ``slab_levels``, every
+    placement against the wrapper's; the full solve timed, with its bound,
+    the pre-pass timed alone, levels a pass and ns a level =
+    (ms - pre-pass) / (passes x levels).  Prints one line of it."""
+    wrapper = _wrappers()[name]
+    walked = _walked(name, args)
+    out = dict(walked_slots=walked, **_equals_levels_plain(name, args, what))
+    lv = _tiled_levels(name, args, what)
+    out.update(_tiled_placed(name, args, what))
+    ms = _kernel_ms(wrapper, args, reps=3)
+    full = _bound_slabs(args, walked)
+    passes = 1 + args["vel_iters"] + args["pos_iters"]
+    out.update(
+        ms_full_solve=ms, bound_ms_full_solve=full["bound_ms"],
+        ns_per_visit=ms * 1e6 / full["visits"], levels=lv["levels"],
+        prepass_ms=lv["prepass_ms"],
+        ns_per_level=(ms - lv["prepass_ms"]) * 1e6
+        / max(1, passes * lv["levels"]),
+        level_widths={k: lv[k] for k in ("width_p50", "width_p90",
+                                         "width_p99", "width_max")})
+    print(f"# {name} at {what}: {walked} slots in {lv['levels']} levels a "
+          f"pass (widths p50 {lv['width_p50']}, max {lv['width_max']}); "
+          f"full solve {ms:.4f} ms, pre-pass {lv['prepass_ms']:.4f} ms, "
+          f"{out['ns_per_level']:.1f} ns a level; pre-pass == slab_levels, "
+          f"every placement == the wrapper's ({out['placement']}); ms by "
+          f"placement {out['ms_full_solve_placements']}", flush=True)
+    return out
 
 
 def _sap_equals_grid(st, cfg) -> dict:
@@ -1220,14 +1343,14 @@ REF_20K = dict(num_contacts=83869, num_pairs=58134, penetration_ratio=0.494)
 
 def phase_pile20k(card: str) -> dict:
     """Bench row C': the 20k pile, whose body capacity puts it in the tiled
-    tier, through K3 once a frame; then K3 against its plain version and
-    timed, K1 timed on the same frame compacted, and one frame through K5
-    (``tiled_routing=False``)."""
+    tier, through K3 once a frame; then K3 against both plain versions,
+    its pre-pass and placements checked and timed (``_tiled_full``), K1
+    timed on the same frame compacted, and one frame through K5
+    (``tiled_routing=False``), K5 checked likewise at its routed rows."""
     import torch
     from phyx_tpu_torch.step import solve_inputs, step
     wrappers = _wrappers()
-    # settle cut from the bench's 300 frames to keep the script in time
-    st, cfg, out = _drive("pile", 20_000, 150, ("K3",), card)
+    st, cfg, out = _drive("pile", 20_000, 300, ("K3",), card)
     pen_ratio = out["max_penetration"] / 0.5
     ovf = {k: out[k] for k in ("pair_overflow", "ovf_window", "ovf_slots",
                                "ovf_drop", "ovf_band", "ovf_slab")}
@@ -1238,21 +1361,20 @@ def phase_pile20k(card: str) -> dict:
                              f"penetration ratio {pen_ratio}")
     st, stages = _stage_ms(st, cfg, frames=3)
 
-    # K3 against the plain version at the frame's shapes: the warm pass and
-    # one velocity pass (the plain version launches one op per scalar
-    # operation)
+    # K3 against the serial plain version at the frame's shapes: the warm
+    # pass and one velocity pass (it launches one op per scalar operation)
     args = solve_inputs(st, cfg)
     if "cum" not in args:
         raise AssertionError("the 20k pile did not take the slab-major path")
     walked = _walked("K3", args)
     short = dict(args, vel_iters=1, pos_iters=0)
     err, plain_ms = _compare(wrappers["K3"], short)
-    print(f"# compare: K3 == plain at the 20k frame ({walked} slots in "
-          f"{args['n_slabs']} slabs, {out['num_contacts']} live contacts), "
-          f"warm + 1 velocity pass; max abs diff {err}", flush=True)
+    print(f"# compare: K3 == serial plain at the 20k frame ({walked} slots "
+          f"in {args['n_slabs']} slabs, {out['num_contacts']} live "
+          f"contacts), warm + 1 velocity pass; max abs diff {err}",
+          flush=True)
     ms_short = _kernel_ms(wrappers["K3"], short, reps=5)
-    ms_full = _kernel_ms(wrappers["K3"], args, reps=3)
-    full = _bound_slabs(args, walked)
+    k3 = _tiled_full("K3", args, "the 20k frame")
 
     # K1 on the same frame, live rows compacted first (timed only: its
     # placement, the working columns in device memory, is held to the
@@ -1283,42 +1405,39 @@ def phase_pile20k(card: str) -> dict:
     print(f"# K5 frame: positions within {k5_diff} of the K3 frame (bar "
           "5e-3), neither frame waiting for the device", flush=True)
 
-    # K5 against the plain version at that frame's shapes, as K3 above
+    # K5 against the serial plain version at that frame's shapes, as K3
     k5_args = solve_inputs(st, routed)
     k5_walked = _walked("K5", k5_args)
     k5_short = dict(k5_args, vel_iters=1, pos_iters=0)
     k5_err, k5_plain_ms = _compare(wrappers["K5"], k5_short)
-    print(f"# compare: K5 == plain at the 20k frame's routed rows "
+    print(f"# compare: K5 == serial plain at the 20k frame's routed rows "
           f"({k5_walked} live slots in {k5_args['n_slabs']} slab budgets of "
           f"{k5_args['b12'].numel() // 2 // k5_args['n_slabs']} slots), "
           f"warm + 1 velocity pass; max abs diff {k5_err}", flush=True)
     k5_ms_short = _kernel_ms(wrappers["K5"], k5_short, reps=5)
-    k5_ms = _kernel_ms(wrappers["K5"], k5_args, reps=3)
-    k5_full = _bound_slabs(k5_args, k5_walked)
+    k5 = _tiled_full("K5", k5_args, "the 20k frame's routed rows")
 
     out.update(metric="steps/s @ 20000-box pile (port, H100 path)",
                penetration_ratio=pen_ratio, stage_device_ms=stages,
-               solve_ms_full=ms_full,
-               solve_share_of_frame=ms_full / out["frame_ms"],
-               k3_walked_slots=walked, k3_ns_per_visit=ms_full * 1e6
-               / full["visits"], k1_ms_full_solve_same_frame=k1_ms,
+               solve_ms_full=k3["ms_full_solve"],
+               solve_share_of_frame=k3["ms_full_solve"] / out["frame_ms"],
+               k3_walked_slots=walked, k3_levels=k3["levels"],
+               k3_prepass_ms=k3["prepass_ms"],
+               k3_ns_per_level=k3["ns_per_level"],
+               k1_ms_full_solve_same_frame=k1_ms,
                k1_ns_per_visit=k1_ms * 1e6 / k1_visits,
-               k5_ms_full_solve=k5_ms, k5_frame_max_pos_diff=k5_diff,
+               k5_ms_full_solve=k5["ms_full_solve"], k5_levels=k5["levels"],
+               k5_prepass_ms=k5["prepass_ms"],
+               k5_frame_max_pos_diff=k5_diff,
                reference_fingerprint=REF_20K)
     print(json.dumps(out), flush=True)
     return dict(
-        k3=dict(launches=out["launches"]["K3"], max_abs_err=err,
+        k3=dict(k3, launches=out["launches"]["K3"], max_abs_err=err,
                 plain_ms=plain_ms, ms=ms_short, **_bound_slabs(short, walked),
-                ms_full_solve=ms_full,
-                bound_ms_full_solve=full["bound_ms"],
-                ns_per_visit=ms_full * 1e6 / full["visits"],
-                walked_slots=walked, contacts=out["num_contacts"], joints=0),
-        k5=dict(launches=k5_launches["K5"], max_abs_err=k5_err,
+                contacts=out["num_contacts"], joints=0),
+        k5=dict(k5, launches=k5_launches["K5"], max_abs_err=k5_err,
                 plain_ms=k5_plain_ms, ms=k5_ms_short,
-                **_bound_slabs(k5_short, k5_walked), ms_full_solve=k5_ms,
-                bound_ms_full_solve=k5_full["bound_ms"],
-                ns_per_visit=k5_ms * 1e6 / k5_full["visits"],
-                walked_slots=k5_walked))
+                **_bound_slabs(k5_short, k5_walked)))
 
 
 def _envs_scene(num_envs: int, boxes_per_env: int):
@@ -1393,14 +1512,17 @@ def _sweep_device_ms(args, reps: int) -> dict:
 # the reference's settled 1024-env row E (BASELINE.md:26 and :94, TPU v5e):
 # a sanity band for the per-env physics, not a target
 REF_E = dict(contacts_per_env=823080 / 1024, penetration_ratio=0.025)
-ENVS = 128
+ENVS = 1024
 
 
-def phase_envs128(card: str) -> dict:
-    """Bench row E at 128 envs x 256 boxes: ``broadphase="sap"`` above the
-    reference's sweep budget takes K4, the capacity the tiled tier and K3,
-    once a frame each; then K4 and K3 against their plain versions at the
-    settled frame, and timed."""
+def phase_envs1024(card: str) -> dict:
+    """Bench row E at the reference's 1024 envs x 256 boxes:
+    ``broadphase="sap"`` above the reference's sweep budget takes K4, the
+    capacity the tiled tier and K3, once a frame each; then K4 against its
+    plain version at the settled frame, and timed, and K3 against its
+    levels plain version on all passes there, its pre-pass and placements
+    checked, and timed (``_tiled_full``; the serial plain version would
+    take ~10 minutes at this frame)."""
     from phyx_tpu_torch.broadphase import _sap_tiled_sort_stage, compute_aabbs
     from phyx_tpu_torch.step import solve_inputs
     st, cfg, out = _drive("envs", ENVS * 256, 240, ("K3", "K4"), card,
@@ -1419,34 +1541,22 @@ def phase_envs128(card: str) -> dict:
     # the kernel's device time, and the wrapper's pace as the frame calls it
     device = _sweep_device_ms(args, reps=20)
     wrapper_ms = _kernel_ms(_wrappers()["K4"], args, reps=20)
-    # K3 at this frame's shapes, as on the 20k pile: against the plain
-    # version on warm + 1 velocity pass, then timed on all passes
-    k3 = _wrappers()["K3"]
     k3_args = solve_inputs(st, cfg)
     if "cum" not in k3_args:
         raise AssertionError(f"the {ENVS}-env frame did not take the "
                              "slab-major path")
-    walked = _walked("K3", k3_args)
-    k3_short = dict(k3_args, vel_iters=1, pos_iters=0)
-    k3_err, k3_plain_ms = _compare(k3, k3_short)
-    print(f"# compare: K3 == plain at the settled {ENVS}-env frame ({walked} "
-          f"slots in {k3_args['n_slabs']} slabs, {out['num_contacts']} live "
-          f"contacts), warm + 1 velocity pass; max abs diff {k3_err}",
-          flush=True)
-    k3_ms_short = _kernel_ms(k3, k3_short, reps=5)
-    k3_ms = _kernel_ms(k3, k3_args, reps=3)
-    k3_visits = _bound_slabs(k3_args, walked)["visits"]
+    k3 = _tiled_full("K3", k3_args, f"the settled {ENVS}-env frame")
     out.update(metric=f"env-steps/s @ {ENVS} envs x 256 boxes (port, H100 "
                "path)", env_steps_per_s=out["steps_per_s"] * ENVS,
                envs=ENVS, contacts_per_env=out["num_contacts"] / ENVS,
                penetration_ratio=pen_ratio, stage_device_ms=stages,
                k4_device_ms=device["device_ms"], k4_wrapper_ms=wrapper_ms,
-               k4_emitted=counts["num"], solve_ms_full=k3_ms,
-               solve_share_of_frame=k3_ms / out["frame_ms"],
-               k3_walked_slots=walked,
-               k3_ns_per_visit=k3_ms * 1e6 / k3_visits,
-               reference_fingerprint=REF_E,
-               cut=f"{ENVS} of the reference's 1024 envs")
+               k4_emitted=counts["num"], solve_ms_full=k3["ms_full_solve"],
+               solve_share_of_frame=k3["ms_full_solve"] / out["frame_ms"],
+               k3_walked_slots=k3["walked_slots"], k3_levels=k3["levels"],
+               k3_prepass_ms=k3["prepass_ms"],
+               k3_ns_per_level=k3["ns_per_level"],
+               reference_fingerprint=REF_E)
     print(json.dumps(out), flush=True)
     return dict(launches=out["launches"]["K4"], max_abs_err=err,
                 env_steps_per_s=out["env_steps_per_s"],
@@ -1456,14 +1566,8 @@ def phase_envs128(card: str) -> dict:
                                           "wrapper_device_ms",
                                           "device_only")},
                 **bound,
-                k3=dict(launches_envs=out["launches"]["K3"],
-                        max_abs_err_envs_frame=k3_err,
-                        ms_envs_frame=k3_ms_short,
-                        plain_ms_envs_frame=k3_plain_ms,
-                        bound_ms_envs_frame=_bound_slabs(
-                            k3_short, walked)["bound_ms"],
-                        ms_full_solve_envs_frame=k3_ms,
-                        walked_slots_envs_frame=walked))
+                k3={f"{key}_envs1024": v for key, v in dict(
+                    k3, launches=out["launches"]["K3"]).items()})
 
 
 def _envs_bar(out: dict, envs: int) -> float:
@@ -1480,7 +1584,7 @@ def _envs_bar(out: dict, envs: int) -> float:
     return pen_ratio
 
 
-def phase_envs64(card: str, envs128: dict) -> dict:
+def phase_envs64(card: str, envs1024: dict) -> dict:
     """Bench row E at bench.py's default of 64 envs x 256 boxes:
     ``broadphase="sap"`` within the reference's sweep budget takes K6, the
     capacity the streamed solve K1, once a frame each; then K6 against its
@@ -1513,7 +1617,7 @@ def phase_envs64(card: str, envs128: dict) -> dict:
                           f"the settled {n_envs}-env frame")
     out.update(metric=f"env-steps/s @ {n_envs} envs x 256 boxes (port, H100 "
                "path)", env_steps_per_s=out["steps_per_s"] * n_envs,
-               env_steps_per_s_128_envs=envs128["env_steps_per_s"],
+               env_steps_per_s_1024_envs=envs1024["env_steps_per_s"],
                envs=n_envs, contacts_per_env=out["num_contacts"] / n_envs,
                penetration_ratio=pen_ratio, stage_device_ms=stages,
                k6_device_ms=k6["ms"], k6_wrapper_ms=k6["wrapper_ms"],
@@ -1613,11 +1717,16 @@ def main() -> int:
     chain = phase_chain(card)
     pile1k = phase_pile1k(card)
     pile20k = phase_pile20k(card)
-    envs = phase_envs128(card)
+    envs = phase_envs1024(card)
     envs64 = phase_envs64(card, envs)
     pile500 = phase_pile500(card)
     passes = "warm + 1 velocity + 1 displacement pass"
     k3, k5 = pile20k["k3"], pile20k["k5"]
+    # the tiled kernels' level schedule at the 20k frame
+    tiled_keys = ("walked_slots", "levels", "prepass_ms", "ns_per_level",
+                  "level_widths", "max_abs_err_levels_plain",
+                  "levels_plain_ms", "placement", "max_abs_err_placements",
+                  "ms_full_solve_placements")
     # the tiled kernels on the small frames (all passes, ungated)
     small_tiled = {name: {f"{key}_small_frames": rec[key] for key in
                           ("max_abs_err", "ms", "plain_ms", "bound_ms")}
@@ -1650,14 +1759,14 @@ def main() -> int:
              "phyx_tpu_torch/csrc/contact_solver_tiled.cu",
              "phyx_tpu/kernels/contact_solver_tiled2.py:68", k3,
              "warm + 1 velocity pass at the 20k pile frame",
-             **small_tiled["K3"], walked_slots=k3["walked_slots"],
-             contacts=k3["contacts"], **envs["k3"]),
+             **small_tiled["K3"], contacts=k3["contacts"],
+             **{key: k3[key] for key in tiled_keys}, **envs["k3"]),
         _row("contact_solver_tiled (K5)",
              "phyx_tpu_torch/csrc/contact_solver_tiled.cu",
              "phyx_tpu/kernels/contact_solver_tiled.py:57", k5,
              "warm + 1 velocity pass at the 20k pile frame's routed rows",
-             **small_tiled["K5"], walked_slots=k5["walked_slots"],
-             small_frame=tiled["K5"]["frame"]),
+             **small_tiled["K5"], small_frame=tiled["K5"]["frame"],
+             **{key: k5[key] for key in tiled_keys}),
         dict(name="sweep_tiled (K4)", route="cuda",
              source="phyx_tpu_torch/csrc/sweep_tiled.cu",
              replaces="phyx_tpu/kernels/sweep.py:114",
@@ -1665,8 +1774,8 @@ def main() -> int:
                                            "plain_ms", "bound_ms",
                                            "bound_by")},
              library_ms=None,
-             timed="the settled 128-env frame, device time of the two "
-                   "launches and the prefix sum",
+             timed=f"the settled {ENVS}-env frame, device time of the "
+                   "two launches and the prefix sum",
              **{f"{key}_small_frames": sweep_small[key] for key in (
                  "max_abs_err", "ms", "plain_ms", "bound_ms")},
              **{key: envs[key] for key in (

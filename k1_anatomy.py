@@ -1,8 +1,9 @@
 """Where K1's time goes, on the card: its full solve at the settled 10k pile
 and 64-env frames, under variants of its source built beside it.
 
-K1 (``phyx_tpu_torch/csrc/contact_solver_streamed.cu``) is a pre-pass that
-levels the visits, then one block that runs each pass level by level.
+K1 (``phyx_tpu_torch/csrc/contact_solver_streamed.cu``, its level schedule
+in ``csrc/levels.cuh``) is a pre-pass that levels the visits, then one
+block that runs each pass level by level.
 This script settles the two frames as ``chip_smoke.py`` does (the 10k pile,
 200 frames; bench row E at 64 envs x 256 boxes, 240 frames), takes K1's
 inputs there, and times on CUDA events, in turns within the run:
@@ -22,8 +23,9 @@ inputs there, and times on CUDA events, in turns within the run:
   ``no_barrier`` (no barrier after a level), and both.  These do not
   compute the solve and are not checked.
 
-The variants are the source with one stated text replaced, written and
-compiled under ``phyx_tpu_torch/_build/anatomy/``.  Prints one JSON line per
+The variants are the source with one stated text of ``levels.cuh``
+replaced, each written with its headers and compiled under
+``phyx_tpu_torch/_build/anatomy/<variant>/``.  Prints one JSON line per
 frame (ms, and ns a level with the pre-pass taken off) and the card's
 ``nvidia-smi`` name and power limit.  Needs one card:
 
@@ -85,32 +87,32 @@ VARIANTS = {
 
 
 def build_variants() -> dict:
-    """Each variant's source written beside a copy of the headers and all
-    compiled at once; returns {name: ctypes library}."""
+    """Each variant written as a copy of K1's source and its headers, with
+    its edits made in ``levels.cuh`` (the level solve), in a directory of
+    its own, and all compiled at once; returns {name: ctypes library}."""
     from phyx_tpu_torch.kernels import contact_solver_streamed as k1
     from phyx_tpu_torch.kernels import nvcc
-    out_dir = nvcc.BUILD_DIR / "anatomy"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    text = k1.SOURCE.read_text()
-    for header in nvcc.sources_of(k1.SOURCE)[1:]:
-        shutil.copy(header, out_dir / header.name)
     sources = {}
     for name, edits in VARIANTS.items():
-        src = text
+        out_dir = nvcc.BUILD_DIR / "anatomy" / name
+        out_dir.mkdir(parents=True, exist_ok=True)
+        for path in nvcc.sources_of(k1.SOURCE):
+            shutil.copy(path, out_dir / path.name)
+        header = out_dir / "levels.cuh"
+        src = header.read_text()
         for edit in edits:
             # (old, new), or (start, end, new): the text from start to end
             for anchor in edit[:-1]:
                 if src.count(anchor) != 1:
                     raise RuntimeError(f"{name}: the text to replace is not "
-                                       f"in {k1.SOURCE.name} once")
+                                       f"in levels.cuh once")
             if len(edit) == 2:
                 src = src.replace(*edit)
             else:
                 start, end = src.index(edit[0]), src.index(edit[1])
                 src = src[:start] + edit[2] + src[end:]
-        path = out_dir / f"k1_{name}.cu"
-        path.write_text(src)
-        sources[name] = path
+        header.write_text(src)
+        sources[name] = out_dir / k1.SOURCE.name
     nvcc.compile_all(list(sources.values()))
     libs = {}
     for name, path in sources.items():

@@ -1,6 +1,8 @@
-// The two tiled serial solves on Hopper (sm_90a): K3, slab-major, and K5,
-// routed, with joint rows.  Both walk solve_slabs (solve_slabs.cuh) with
-// solve_rows.cuh's visits; they differ only in where a slab's slots lie.
+// The two tiled solves on Hopper (sm_90a), run level by level over the
+// visits' dependency graph on the embedded body table: K3, slab-major, and
+// K5, routed, with joint rows.  Both use the level schedule of levels.cuh
+// (K1's) with a slab visit map; they differ only in where a slab's slots
+// lie.
 //
 // K3 replaces the TPU kernel phyx_tpu/kernels/contact_solver_tiled2.py,
 // _tiled2_kernel (line 68), called through solve_contacts_tiled2.  Bodies
@@ -16,44 +18,65 @@
 // slots [s*(c_slots + j_slots), +c_slots) for contacts and the j_slots after
 // them for joint rows), and every pass visits, slab by slab, the slab's live
 // contact slots (counts[s], at most c_slots) and then its live joint slots
-// (counts[n_slabs + s], at most j_slots).  Joint segments are compiled away
-// when there are no joint slots, as in K1.
+// (counts[n_slabs + s], at most j_slots).
 //
 // What the TPU kernels do that is not carried over: they copy one slab
 // window (W rows) into SMEM, switch windows where a slab ends (K3 mid-block,
 // switch_window, with a rewind to the first live slab at each pass wrap).
-// On one body table in device memory all of that is the identity: window s
-// is written back before window s+1 is read, and nothing else reads the
-// table meanwhile, so visiting row s*stride + local in the table reads and
-// writes exactly what the window copy would.  Their 1024-slot row blocks,
-// double buffering, 16x unroll, K5's dead-block skip (here only live slots
-// are walked) and buffer-set bookkeeping are not carried over either.
+// On one body table all of that is the identity: window s is written back
+// before window s+1 is read, and nothing else reads the table meanwhile, so
+// visiting row s*stride + local in the table reads and writes exactly what
+// the window copy would.  Windows overlap in the table itself (slab s's
+// halo rows are slab s+1's first rows), so a visit's two rows,
+// s*stride + clamp(local, window), are nodes of one graph over the table:
+// the pre-pass keys its last-level array on the table row after the clamp,
+// and visits of two slabs that share a halo row keep their serial order,
+// while slabs with disjoint rows run side by side.  Their 1024-slot row
+// blocks, double buffering, 16x unroll, K5's dead-block skip (here only
+// live slots are walked) and buffer-set bookkeeping are not carried over
+// either.
 //
-// What bounds them: one dependent chain of visits, 17 passes x the walked
-// slots (K3 walks the slots of live pairs: SAT-dead slots inside them are
-// visited as no-ops, zero masses and warm impulses), each a load of a row
-// and two body rows, ~40 dependent float operations and a store the next
-// visit may read.  So latency, not bytes.  The design is K1's, simple and
-// right first: one thread, the table (1.6 MB at the 20k pile: 51,200 rows)
-// in device memory, where it sits in the 50 MB L2 (it does not fit one
-// block's 227 KB of shared memory, nor does one 18,432-row window), the slab
-// segments read on the device so the wrapper never waits.
+// What bounds them: the serial walk (the first design, one thread) was one
+// dependent chain of 17 passes x the walked slots, each an id load, two
+// body-row loads, ~40 dependent float operations and a store the next visit may
+// read: ~380-455 ns a visit on an H100, so latency, not bytes.  Run level by
+// level the chain is the levels (a pass's depth, not its visits) plus the
+// serial pre-pass over the walked slots.  K3 walks the slots of live pairs: the
+// SAT-dead slots inside them are visited as no-ops (zero masses and warm
+// impulses) and stay nodes of the graph, since a no-op can still flip the sign
+// of a written zero.  Placement (the wrapper decides from the table's rows as
+// K1 does from its bodies, kernels/contact_solver_streamed.py placement): the
+// last-level array (4 npad bytes) in shared memory up to 51,200 rows (the 20k
+// pile's table), else in device memory; the working columns (12 npad bytes) in
+// shared memory where they fit one block (small tables), else in device memory,
+// where the table sits in the 50 MB L2.  Columns spread over a thread-block
+// cluster's shared memory (4 blocks at 51,200 rows) ran each level 1.46 times
+// slower than the device-memory columns on an H100 (k3_anatomy.py, PERF.md), so
+// one block it is.
 
 #include <cuda_runtime.h>
 
-#include "solve_slabs.cuh"
+#include "levels.cuh"
 
 namespace {
+
+using phyx::levels::Scratch;
+using phyx::levels::Visit;
 
 __device__ __forceinline__ int clamp_count(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
+// one slab's slots: contact slots [c0, c1), then joint slots [j0, j1)
+struct SlabSlots {
+  int c0, c1, j0, j1;
+};
+
 // K3: slab s holds the slots [cum[s], cum[s+1]), clamped into [0, s_cap)
 struct CumSlots {
   const int* cum;  // (n_slabs + 1) live-slot cumsum
   int s_cap;
-  __device__ __forceinline__ phyx::SlabSlots operator()(int s) const {
+  __device__ __forceinline__ SlabSlots operator()(int s) const {
     const int c0 = clamp_count(cum[s], 0, s_cap);
     return {c0, clamp_count(cum[s + 1], c0, s_cap), 0, 0};
   }
@@ -63,7 +86,7 @@ struct CumSlots {
 struct BudgetSlots {
   const int* counts;  // (2*n_slabs) live contact, then joint rows per slab
   int n_slabs, c_slots, j_slots;
-  __device__ __forceinline__ phyx::SlabSlots operator()(int s) const {
+  __device__ __forceinline__ SlabSlots operator()(int s) const {
     const int c0 = s * (c_slots + j_slots);
     const int j0 = c0 + c_slots;
     return {c0, c0 + clamp_count(counts[s], 0, c_slots), j0,
@@ -71,58 +94,123 @@ struct BudgetSlots {
   }
 };
 
-template <bool kJoints, class Segments>
-__global__ void contact_solve_slabs(
-    float* __restrict__ body,        // (npad*8) in/out
-    const int* __restrict__ b12,     // (S*2) window-local rows
-    const float* __restrict__ cw,    // (S*14)
-    float* __restrict__ acc,         // (S*4) zeroed by the caller
-    float* __restrict__ res_out,     // (1)
-    const float* __restrict__ tols,  // (2) [velocity, position] thresholds
-    int stride, int window, int n_slabs, Segments segs, int vel_iters,
-    int pos_iters) {
-  if (blockIdx.x != 0 || threadIdx.x != 0) return;
-  phyx::solve_slabs<kJoints>(body, acc, b12, cw, stride, window, n_slabs,
-                             segs, vel_iters, pos_iters, tols[0], tols[1],
-                             res_out);
+// The slab walk as a visit map (levels.cuh): for each slab s its contact
+// slots, then its joint slots (Segments says which), a slot's rows at
+// s*stride + its local rows clamped into [0, window).  Segment g = 2s
+// (contacts) or 2s + 1 (joints); begin() lays out in shared memory each
+// segment's first visit (off, 2 n_slabs + 1) and first slot (first,
+// 2 n_slabs).  A segment never starts before the one before it ends (a
+// running max), so no slot is visited twice in a pass: on a non-decreasing
+// cum (a cumsum, as every caller makes) and on K5's budgets this is the
+// serial walk's order exactly.
+template <class Segments>
+struct SlabMap {
+  const int* b12;  // (S*2) window-local rows
+  const float* cw;  // (S*14) row columns | warm impulses
+  Segments segs;
+  int n_slabs, stride, window;
+  int* off;
+  int* first;
+
+  __host__ __device__ int table_ints() const { return 4 * n_slabs + 1; }
+  __device__ __forceinline__ int begin(int* table) {
+    off = table;
+    first = table + 2 * n_slabs + 1;
+    if (threadIdx.x == 0) {
+      int total = 0, end = 0;
+      for (int s = 0; s < n_slabs; ++s) {
+        const SlabSlots g = segs(s);
+        const int lo[2] = {g.c0, g.j0}, hi[2] = {g.c1, g.j1};
+        for (int h = 0; h < 2; ++h) {
+          const int a = max(lo[h], end), b = max(hi[h], a);
+          off[2 * s + h] = total;
+          first[2 * s + h] = a;
+          total += b - a;
+          end = b;
+        }
+      }
+      off[2 * n_slabs] = total;
+    }
+    __syncthreads();
+    return off[2 * n_slabs];
+  }
+  __device__ __forceinline__ Visit at(int q, int& g) const {
+    while (q >= off[g + 1]) ++g;
+    const int k = first[g] + (q - off[g]);
+    const int base = (g >> 1) * stride;
+    return {k, base + phyx::clamp_id(b12[2 * k], window),
+            base + phyx::clamp_id(b12[2 * k + 1], window), (g & 1) != 0};
+  }
+  __device__ __forceinline__ const float* cols(int k) const {
+    return cw + 14 * static_cast<size_t>(k);
+  }
+  __device__ __forceinline__ const float* warm(int k) const {
+    return cw + 14 * static_cast<size_t>(k) + 12;
+  }
+};
+
+template <class Segments>
+SlabMap<Segments> slab_map(const void* b12, const void* cw, Segments segs,
+                           int n_slabs, int stride, int window) {
+  return SlabMap<Segments>{static_cast<const int*>(b12),
+                           static_cast<const float*>(cw),
+                           segs,
+                           n_slabs,
+                           stride,
+                           window,
+                           nullptr,
+                           nullptr};
 }
 
-template <bool kJoints, class Segments>
-int launch(void* body, const void* b12, const void* cw, void* acc, void* res,
-           const void* tols, int stride, int window, int n_slabs,
-           Segments segs, int vel_iters, int pos_iters, void* stream) {
-  contact_solve_slabs<kJoints>
-      <<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<float*>(body), static_cast<const int*>(b12),
-          static_cast<const float*>(cw), static_cast<float*>(acc),
-          static_cast<float*>(res), static_cast<const float*>(tols), stride,
-          window, n_slabs, segs, vel_iters, pos_iters);
-  return static_cast<int>(cudaGetLastError());
+// the pre-pass, then (solve) the level solve, on body (npad*8, in/out)
+template <class Segments>
+int run(const SlabMap<Segments>& map, bool joints, void* body, void* acc,
+        void* res, const void* tols, int npad, int s_cap, int vel_iters,
+        int pos_iters, void* iscratch, void* fscratch, int smem_last,
+        int smem_cols, bool solve, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  const Scratch s = phyx::levels::carve(iscratch, fscratch, s_cap);
+  cudaError_t err = phyx::levels::launch_levels(
+      map, static_cast<const float*>(body), npad, smem_last != 0, s, st);
+  if (err != cudaSuccess || !solve) return static_cast<int>(err);
+  return static_cast<int>(phyx::levels::launch_solve(
+      joints, smem_cols != 0, static_cast<float*>(body), s,
+      static_cast<float*>(acc), static_cast<const float*>(tols),
+      static_cast<float*>(res), npad, vel_iters, pos_iters, st));
 }
 
 }  // namespace
 
-// Plain C entries for ctypes: each launches on `stream` and returns
-// cudaGetLastError() (0 = launched).  Pointers are device pointers.
+// Plain C entries for ctypes: each launches on `stream` and returns the
+// first CUDA error (0 = launched).  Pointers are device pointers; npad is
+// the table's rows, s_cap its slots; iscratch holds 4 s_cap + npad + 2 ints
+// and fscratch 24 s_cap floats (levels.cuh carve).  smem_last puts the
+// pre-pass's last-level array (4 npad bytes) in shared memory, smem_cols
+// the level solve's working columns (12 npad bytes): the caller decides
+// from npad what fits.  solve = 0 runs the pre-pass alone (for timing it,
+// and for checking the levels).
+
 extern "C" int phyx_contact_solve_tiled2(
     void* body, const void* b12, const void* cw, void* acc, void* res,
     const void* cum, const void* tols, int stride, int window, int n_slabs,
-    int s_cap, int vel_iters, int pos_iters, void* stream) {
-  return launch<false>(body, b12, cw, acc, res, tols, stride, window,
-                       n_slabs, CumSlots{static_cast<const int*>(cum), s_cap},
-                       vel_iters, pos_iters, stream);
+    int s_cap, int vel_iters, int pos_iters, int npad, void* iscratch,
+    void* fscratch, int smem_last, int smem_cols, int solve, void* stream) {
+  return run(slab_map(b12, cw, CumSlots{static_cast<const int*>(cum), s_cap},
+                      n_slabs, stride, window),
+             false, body, acc, res, tols, npad, s_cap, vel_iters, pos_iters,
+             iscratch, fscratch, smem_last, smem_cols, solve != 0, stream);
 }
 
 extern "C" int phyx_contact_solve_tiled(
     void* body, const void* b12, const void* cw, void* acc, void* res,
     const void* counts, const void* tols, int stride, int window,
     int n_slabs, int c_slots, int j_slots, int vel_iters, int pos_iters,
-    void* stream) {
+    int npad, void* iscratch, void* fscratch, int smem_last, int smem_cols,
+    int solve, void* stream) {
   const BudgetSlots segs{static_cast<const int*>(counts), n_slabs, c_slots,
                          j_slots};
-  return j_slots > 0
-             ? launch<true>(body, b12, cw, acc, res, tols, stride, window,
-                            n_slabs, segs, vel_iters, pos_iters, stream)
-             : launch<false>(body, b12, cw, acc, res, tols, stride, window,
-                             n_slabs, segs, vel_iters, pos_iters, stream);
+  return run(slab_map(b12, cw, segs, n_slabs, stride, window), j_slots > 0,
+             body, acc, res, tols, npad, n_slabs * (c_slots + j_slots),
+             vel_iters, pos_iters, iscratch, fscratch, smem_last, smem_cols,
+             solve != 0, stream);
 }

@@ -1,11 +1,11 @@
-// The visits of every solve kernel, and the serial walk solve_rows of the
-// fused kernel contact_solver.cu (state in shared memory).  The streamed
-// kernel contact_solver_streamed.cu runs the same visits level by level,
-// and the tiled kernels (solve_slabs.cuh) in slab order; every kernel does
-// each visit's arithmetic here, so the fused and streamed kernels agree to
-// the bit by construction.  Built with -fmad=false: every multiply and add
-// rounds separately, in the order written here, which is the order of the
-// plain version (phyx_tpu_torch/kernels/contact_solver_streamed.py).
+// The visits of every solve kernel, and the serial walk solve_rows of the fused
+// kernel contact_solver.cu (state in shared memory).  The streamed kernel
+// contact_solver_streamed.cu and the tiled kernels contact_solver_tiled.cu run
+// the same visits level by level (levels.cuh); every kernel does each visit's
+// arithmetic here, so the fused and streamed kernels agree to the bit by
+// construction.  Built with -fmad=false: every multiply and add rounds
+// separately, in the order written here, which is the order of the plain
+// version (phyx_tpu_torch/kernels/contact_solver_streamed.py).
 //
 // Layout (flat): body rows (N*8) [vx, vy, w, inv_mass, inv_inertia, dvx,
 // dvy, dw]; plain body ids b1/b2 (R); rows con (R*12) and warm (R*2);
@@ -15,11 +15,10 @@
 // phyx_tpu_torch/joints.py (kind in slot 11).  Each pass visits the contact
 // rows, then the joint rows.
 //
-// The visits are templates on the body type B: bi[c] reads or writes
-// column c of a body.  B = float* is a row of the body table (the serial
-// walks here and in solve_slabs.cuh); the level solve of
-// contact_solver_streamed.cu passes a view whose working columns sit in
-// shared memory.  The arithmetic, and its order, is the same for every B.
+// The visits are templates on the body type B: bi[c] reads or writes column c
+// of a body.  B = float* is a row of the body table (the serial walk here); the
+// level solve of levels.cuh passes a view whose working columns sit in shared
+// or device memory.  The arithmetic, and its order, is the same for every B.
 
 #pragma once
 

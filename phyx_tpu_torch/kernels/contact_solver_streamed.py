@@ -7,7 +7,10 @@ Counterpart of ``phyx_tpu/kernels/contact_solver_streamed.py``
 ``csrc/contact_solver_streamed.cu``: a pre-pass gives every live visit a
 level in the visits' dependency graph (``visit_levels`` here computes the
 same levels), then one block runs each pass level by level, the visits of
-a level (which touch disjoint bodies) side by side.  Its visits are those
+a level (which touch disjoint bodies) side by side.  The pre-pass and the
+level solve are ``csrc/levels.cuh``'s, shared with the tiled kernels K3
+and K5 (``kernels/contact_solver_tiled.py``), which level their slab walk
+with ``levels_of`` and ``levels_walk`` here.  Its visits are those
 of ``csrc/solve_rows.cuh``, shared with the fused kernel
 (``kernels/contact_solver.py``), which walks them serially with its state in
 shared memory.  Built with ``nvcc`` at first use (``kernels/nvcc.py``) and
@@ -510,21 +513,9 @@ def visit_levels(b1, b2, num_contacts, num_joints, c_cap: int, n: int):
     """The kernel's pre-pass as torch operations on the ids' device: the
     live visits in serial order (contact slots [0, num), then joint slots
     [c_cap, c_cap + numj)), ids clamped into [0, n) as the kernel clamps
-    them, and each visit's level, ``level(k) = 1 + max(last[i], last[j])``
-    over the visits before it (``last[b]``: the level of the latest visit
-    of body b, 0 before any).  Visits of one level touch disjoint bodies,
-    and two visits that share a body keep their serial order, so running
-    the levels one after another, each level's visits in any order,
-    repeats the serial solve operation for operation.
-
-    Computed without the serial walk: each visit's predecessors are the
-    previous visits of its two bodies (a sort of the (body, visit)
-    endpoints), and the levels are relaxed to their fixed point, one
-    iteration per level.  Returns a dict: ``slots``, ``i``, ``j``
-    (visits,) int64; ``level`` (visits,) int64, 1-based; ``n_levels``;
-    ``order`` (visits,) int64, the visits by level, serial order inside a
-    level (a stable sort); ``offsets`` (n_levels + 1,) int64, level l's
-    visits at ``order[offsets[l]:offsets[l + 1]]``."""
+    them, and each visit's level (``levels_of``).  Returns a dict:
+    ``slots``, ``i``, ``j`` (visits,) int64 and ``levels_of``'s ``level``,
+    ``n_levels``, ``order``, ``offsets``."""
     device = b1.device
     r = b1.numel()
     num = min(max(int(num_contacts), 0), c_cap)
@@ -534,10 +525,31 @@ def visit_levels(b1, b2, num_contacts, num_joints, c_cap: int, n: int):
                        torch.arange(c_cap, c_cap + numj, device=device)])
     i = torch.clamp(b1[slots].long(), 0, n - 1)
     j = torch.clamp(b2[slots].long(), 0, n - 1)
-    v = slots.numel()
+    return dict(slots=slots, i=i, j=j, **levels_of(i, j))
+
+
+def levels_of(i, j) -> dict:
+    """The levels of visits in serial order whose body rows are ``i`` and
+    ``j`` ((visits,) int64): ``level(k) = 1 + max(last[i], last[j])`` over
+    the visits before it (``last[b]``: the level of the latest visit of
+    row b, 0 before any).  Visits of one level touch disjoint rows, and two
+    visits that share a row keep their serial order, so running the levels
+    one after another, each level's visits in any order, repeats the serial
+    solve operation for operation.
+
+    Computed without the serial walk: each visit's predecessors are the
+    previous visits of its two rows (a sort of the (row, visit)
+    endpoints), and the levels are relaxed to their fixed point, one
+    iteration per level.  Returns a dict: ``level`` (visits,) int64,
+    1-based; ``n_levels``; ``order`` (visits,) int64, the visits by level,
+    serial order inside a level (a stable sort); ``offsets``
+    (n_levels + 1,) int64, level l's visits at
+    ``order[offsets[l]:offsets[l + 1]]``."""
+    device = i.device
+    v = i.numel()
     visit = torch.arange(v, device=device)
-    # endpoints sorted by (body, visit, side): an endpoint's predecessor is
-    # the endpoint before it on the same body, unless that is the other
+    # endpoints sorted by (row, visit, side): an endpoint's predecessor is
+    # the endpoint before it on the same row, unless that is the other
     # end of its own visit (a self pair), which adds no constraint
     body = torch.cat([i, j])
     owner = torch.cat([visit, visit])
@@ -564,8 +576,8 @@ def visit_levels(b1, b2, num_contacts, num_joints, c_cap: int, n: int):
     counts = torch.bincount(level - 1, minlength=n_levels)
     offsets = torch.zeros(n_levels + 1, dtype=torch.int64, device=device)
     offsets[1:] = torch.cumsum(counts, 0)
-    return dict(slots=slots, i=i, j=j, level=level, n_levels=n_levels,
-                order=order, offsets=offsets)
+    return dict(level=level, n_levels=n_levels, order=order,
+                offsets=offsets)
 
 
 def solve_contacts_levels_plain(
@@ -573,26 +585,38 @@ def solve_contacts_levels_plain(
     vel_iters: int, pos_iters: int, num_joints=None, c_cap=None, tols=None,
 ):
     """The second plain version: the solve of ``solve_contacts_streamed``
-    run level by level over ``visit_levels``, each level's visits of one
-    kind (contact, revolute joint, distance joint) as one vectorised torch
-    operation per scalar operation of the visit, in the visit's order.
-    Visits of one level touch disjoint bodies, so this is the serial
-    solve's arithmetic on the serial solve's operands: it equals
+    run level by level over ``visit_levels`` (``levels_walk``).  It equals
     ``solve_contacts_streamed_plain`` to the bit (a NaN residual may carry
     another payload).  It reads the counts and levels back to the host:
     for tests and for comparison with the kernel."""
-    device = body_flat.device
     n = body_flat.numel() // 8
     r = b1.numel()
     c_cap = r if c_cap is None else int(c_cap)
+    lv = visit_levels(b1, b2, num_contacts, num_joints, c_cap, n)
+    return levels_walk(body_flat.reshape(n, 8), con_flat.reshape(r, 12),
+                       warm_flat.reshape(r, 2), lv, lv["slots"] >= c_cap,
+                       vel_iters, pos_iters, tols)
+
+
+def levels_walk(table, con_rows, warm_rows, lv, joint, vel_iters: int,
+                pos_iters: int, tols=None):
+    """The serial solve of ``plain_walk`` run level by level: ``lv`` holds
+    the visits in serial order (``slots``, body rows ``i``, ``j``) and
+    their levels (``levels_of``), ``joint`` (visits,) bool marks joint
+    rows.  Each level's visits of one kind (contact, revolute joint,
+    distance joint) run as one vectorised torch operation per scalar
+    operation of the visit, in the visit's order.  Visits of one level
+    touch disjoint rows, so this is the serial solve's arithmetic on the
+    serial solve's operands: it equals ``plain_walk`` over the same visits
+    to the bit (a NaN residual may carry another payload).  Returns
+    (table' flat, acc (slots*4,) zero where not visited, residual (1,))."""
+    device = table.device
+    r = con_rows.shape[0]
     if tols is None:
         tols = torch.zeros((2,), dtype=torch.float32, device=device)
     vtol, ptol = tols.unbind()
-    lv = visit_levels(b1, b2, num_contacts, num_joints, c_cap, n)
-    con_rows = con_flat.reshape(r, 12)
-    warm_rows = warm_flat.reshape(r, 2)
     # kind per visit: 0 contact, 1 revolute joint, 2 distance joint
-    kind = torch.where(lv["slots"] < c_cap, 0,
+    kind = torch.where(~joint, 0,
                        torch.where(con_rows[lv["slots"], 11] == 1.0, 1, 2))
     # each level's visits grouped by kind: (kind, slots, i, j, con columns,
     # warm columns), serial order inside a group
@@ -615,7 +639,7 @@ def solve_contacts_levels_plain(
                 start += m
         levels.append(groups)
 
-    cols = [c.clone() for c in body_flat.reshape(n, 8).unbind(1)]
+    cols = [c.clone() for c in table.unbind(1)]
     acc = torch.zeros((r, 4), dtype=torch.float32, device=device)
     zero = torch.zeros((), dtype=torch.float32, device=device)
 
@@ -632,6 +656,17 @@ def solve_contacts_levels_plain(
 
     def masses(i, j):
         return cols[3][i], cols[4][i], cols[3][j], cols[4][j]
+
+    # the kernels' max_p / min_p (solve_rows.cuh), ties and NaNs included,
+    # whatever path torch takes: a vectorised torch.maximum may return the
+    # other of two zeros where the scalar one keeps the first
+    def max_p(a, b):
+        return torch.where(torch.isnan(a), a, torch.where(
+            torch.isnan(b), b, torch.where(a < b, b, a)))
+
+    def min_p(a, b):
+        return torch.where(torch.isnan(a), a, torch.where(
+            torch.isnan(b), b, torch.where(b < a, b, a)))
 
     def arms(k, c):
         return c[0:4] if k == 1 else c[2:6]
@@ -670,13 +705,13 @@ def solve_contacts_levels_plain(
             vt = -ny * dvx + nx * dvy
             d = (dstv - vn) * mn
             a = acc[s, 0]
-            na = torch.maximum(a + d, zero)
+            na = max_p(a + d, zero)
             dn = na - a
             acc[s, 0] = na
             d = -(vt + ctn * dn) * mt
             a = acc[s, 1]
             mf = fr * na
-            ta = torch.minimum(torch.maximum(a + d, -mf), mf)
+            ta = min_p(max_p(a + d, -mf), mf)
             dt = ta - a
             acc[s, 1] = ta
             px = nx * dn - ny * dt
@@ -722,7 +757,7 @@ def solve_contacts_levels_plain(
             vn = nx * dvx + ny * dvy
             d = (ddv - vn) * mn
             a = acc[s, 2]
-            na = torch.maximum(a + d, zero)
+            na = max_p(a + d, zero)
             d = na - a
             acc[s, 2] = na
             ix = nx * d
