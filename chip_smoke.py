@@ -10,12 +10,14 @@ Phases; any failure raises and the script exits non-zero:
              ``phyx_tpu_torch/csrc``, one ``nvcc`` each, started together:
              K1, the streamed solve (state in device memory, run level by
              level over the visits' dependency graph), K2, the
-             fused solve (state in shared memory), in one source K3 and
+             fused solve (one launch of one block: K1's pre-pass, then the
+             level walk with its records streamed into a ring of shared
+             memory by bulk copies), in one source K3 and
              K5, the slab-major and the routed tiled solves (the x-rank
              embedded body table, run level by level with K1's schedule),
              K4, the slab-windowed sweep, and in one source K6 and K7, the
-             chunked and the serial sweep emission (each: count, prefix
-             sum, emit).
+             chunked sweep emission (count, prefix sum, emit) and the
+             serial one (one launch: a warp a sorted row).
 3. compare — each solve kernel against the plain torch version on the
              packed solve input of small frames on the card, gates off and
              on: K1 and K2 on a 200-box pile (contacts only), a loaded
@@ -26,7 +28,13 @@ Phases; any failure raises and the script exits non-zero:
              version, in every placement of its per-row arrays, and its
              pre-pass against ``slab_levels``.  Body rows, accumulators
              and residual must be equal
-             (exact float32 equality), and K1 must equal K2.  K4 against
+             (exact float32 equality), K1 must equal K2, and K2 its
+             schedule's plain version (``fused_steps`` and
+             ``ring_schedule``) on all passes; K2 also with its
+             accumulators in device memory (the pile frame's row slots
+             padded past their room in shared memory), on numpy-made
+             rows whose levels are wider than its 128 solving threads,
+             and with no live row (K1 == K2 on both).  K4 against
              its plain version on a two-slab banded 64-env mega-scene
              (true-x accept on and off), the same in the segmented layout,
              and numpy-made rows that force ``ovf_window`` and, with a
@@ -71,11 +79,14 @@ Phases; any failure raises and the script exits non-zero:
              joint bar (overflow 0, residual <= 1e-2), finite state; stage
              times; K2 against the plain version at the frame's shapes on
              fewer passes, gates off and on; K1 == K2 on the full frame,
-             and both timed there.
+             and both timed there; K2's levels a pass, the share of narrow
+             levels (one warp's), its pre-pass timed alone, ns a level and
+             its place in shared memory (ring depth and bytes, where the
+             accumulators sit).
 6. pile1k  — the 1k pile (cap 1024, 3584 pairs): 400-frame settle, slope
              timing, K2 once a frame, the 0.6 penetration bar; stage times;
              K2 against the plain version at the frame's shapes, gates off
-             and on.
+             and on; K1 == K2 and K2's levels, as at the chain frame.
 7. pile20k — the 20k pile (cap 32,768, 64,000 pairs: the tiled tier,
              3 slabs of the default 16,384-row stride): the bench's
              300-frame settle without host waits, slope timing, K3 once a
@@ -120,7 +131,11 @@ Phases; any failure raises and the script exits non-zero:
              build() settings (cap 512, 2,048 pairs): K7, the capacity not
              in whole chunks, and K2: 400-frame settle, slope timing, K7 and
              K2 once a frame, the 0.6 penetration bar; stage times; K7
-             against its plain version at the settled frame, and timed.
+             against its plain version at the settled frame and at a
+             buffer cut to half its pairs (``ovf`` counted), with its
+             per-row counts in device memory (the placement past 51,200
+             rows), one launch a call (torch.profiler's device kernels),
+             and timed; K2 as at the chain frame.
 
 Prints a JSON line per main-path phase (physics, rate, stage times), a
 JSON line of the kernels, the card's ``nvidia-smi`` name and power limit,
@@ -278,12 +293,117 @@ def _small_frame(kind):
     return rollout(sb.build(), cfg, frames), cfg, f"{kind} frame"
 
 
+def _wide_rows() -> dict:
+    """tests/test_torch_fused_levels.py's wide frame on the card: levels
+    of 320, 20 (five), 40 and 10 contact rows, so wide levels (three steps
+    of the 128 solving threads, then one) follow narrow ones and narrow
+    follow wide; numpy-made rows and warm impulses."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(2)
+    b1 = list(range(1, 301))                       # level 1: 300 pairs
+    b2 = list(range(301, 601))
+    for c in range(20):                            # 20 chains of 6 rows
+        b1 += [601 + c] * 6
+        b2 += list(range(621 + 6 * c, 627 + 6 * c))
+    b1 += [601 + c for c in range(20)] + [626 + 6 * c for c in range(20)]
+    b2 += list(range(741, 761)) + list(range(761, 781))   # level 7: 40
+    b1 += [601 + c for c in range(10)]             # level 8: 10
+    b2 += list(range(781, 791))
+    n, c_cap = 800, len(b1)
+    body = np.zeros((n, 8), np.float32)
+    body[:, 0:3] = rng.normal(0.0, 0.5, (n, 3))
+    body[0, 0:3] = 0.0
+    body[1:, 3] = rng.uniform(0.5, 2.0, n - 1)
+    body[1:, 4] = rng.uniform(0.5, 2.0, n - 1)
+    ang = rng.uniform(0.0, 2 * np.pi, c_cap)
+    con = np.zeros((c_cap, 12), np.float32)
+    con[:, 0], con[:, 1] = np.cos(ang), np.sin(ang)
+    con[:, 2:6] = rng.normal(0.0, 0.5, (c_cap, 4))
+    con[:, 6:8] = rng.uniform(0.02, 0.1, (c_cap, 2))
+    con[:, 8] = rng.uniform(0.2, 0.8, c_cap)
+    con[:, 9] = rng.uniform(0.0, 0.3, c_cap)
+    con[:, 10] = rng.uniform(0.0, 0.05, c_cap)
+    con[:, 11] = rng.normal(0.0, 0.1, c_cap)
+    warm = np.stack([rng.uniform(0.0, 0.3, c_cap),
+                     rng.uniform(-0.05, 0.05, c_cap)], 1).astype(np.float32)
+
+    def card(x, dtype=torch.float32):
+        return torch.tensor(np.ascontiguousarray(x).reshape(-1), dtype=dtype,
+                            device="cuda")
+
+    return dict(body_flat=card(body), b1=card(b1, torch.int32),
+                b2=card(b2, torch.int32), con_flat=card(con),
+                warm_flat=card(warm),
+                num_contacts=torch.tensor(c_cap, dtype=torch.int32,
+                                          device="cuda"),
+                vel_iters=10, pos_iters=6, num_joints=None, c_cap=c_cap,
+                tols=None)
+
+
+def _k2_wide_and_empty() -> float:
+    """K2's wide steps and its empty solve on the card: the wide frame
+    (``_wide_rows``) and the same rows with ``num`` 0, each against the
+    plain version and K1, ungated and gated.  Returns the max abs
+    difference."""
+    import torch
+    w = _wrappers()
+    err = 0.0
+    wide = _wide_rows()
+    empty = dict(wide, num_contacts=torch.zeros((), dtype=torch.int32,
+                                                device="cuda"))
+    for what, args in (("the wide frame (levels of 320, 20 x 5, 40 and "
+                        "10 rows)", wide), ("the same rows with num 0",
+                                            empty)):
+        for tols in (None, torch.tensor([0.05, 0.02], device="cuda")):
+            a = dict(args, tols=tols)
+            err = max(err, _compare(w["K2"], a)[0], _k1_equals_k2(a))
+        print(f"# compare: K2 == plain, K1 == K2 at {what}, gates off and "
+              f"on; max abs diff {err}", flush=True)
+    return err
+
+
+def _k2_acc_in_device_memory(args) -> float:
+    """K2 with its accumulators in device memory: the contact frame
+    ``args`` with its row slots padded (zero rows, not visited) to the most
+    the tier rule lets K2 take beside its bodies, where the accumulators no
+    longer fit beside the ring (``fused_layout``).  Against the plain
+    version, ungated and gated; returns the max abs difference."""
+    import torch
+    from phyx_tpu_torch.kernels.contact_solver import (SMEM_LIMIT, fits,
+                                                       fused_layout)
+    n, r = args["body_flat"].numel() // 8, args["b1"].numel()
+    pad = (SMEM_LIMIT // 4 - 8 * n) // 4 - r
+    big = r + pad
+    if not (fits(n, big) and not fused_layout(n, big)["acc_smem"]):
+        raise AssertionError(f"{n} bodies, {big} rows: not the placement "
+                             "of the accumulators in device memory")
+
+    def padded(t, width):
+        return torch.cat([t, t.new_zeros(pad * width)])
+
+    out = dict(args, b1=padded(args["b1"], 1), b2=padded(args["b2"], 1),
+               con_flat=padded(args["con_flat"], 12),
+               warm_flat=padded(args["warm_flat"], 2), c_cap=big)
+    err = _compare(_wrappers()["K2"], out)[0]
+    skip = torch.full((2,), 1e30, dtype=torch.float32, device="cuda")
+    err = max(err, _compare(_wrappers()["K2"], dict(
+        out, vel_iters=2, pos_iters=2, tols=skip))[0])
+    print(f"# compare: K2 == plain with its accumulators in device memory "
+          f"({n} bodies, {big} row slots), gates off and on; max abs diff "
+          f"{err}", flush=True)
+    return err
+
+
 def phase_compare() -> dict:
     """K1 and K2 against the plain version, and K1 against K2, on small
     frames, gates off and on.  Returns the max abs differences."""
+    from phyx_tpu_torch.kernels.contact_solver import \
+        solve_contacts_fused_levels_plain
     from phyx_tpu_torch.step import solve_inputs, stats_dict
     w = _wrappers()
     errs = dict(K1=0.0, K2=0.0)
+    errs["K2"] = _k2_wide_and_empty()
     for kind in ("pile", "bridge", "net"):
         st, cfg, what = _small_frame(kind)
         stats = stats_dict(st.stats)
@@ -298,9 +418,15 @@ def phase_compare() -> dict:
             for name in ("K1", "K2"):
                 errs[name] = max(errs[name], _compare(w[name], args)[0])
             _k1_equals_k2(args)
+            errs["K2"] = max(errs["K2"], _equal(
+                "K2 vs its schedule's plain version", w["K2"](**args),
+                solve_contacts_fused_levels_plain(**args)))
+        if kind == "pile":
+            errs["K2"] = max(errs["K2"], _k2_acc_in_device_memory(args))
         rows = args["b1"].numel()
         numj = 0 if args["num_joints"] is None else int(args["num_joints"])
-        print(f"# compare: K1 == plain, K2 == plain, K1 == K2 on a {what} "
+        print(f"# compare: K1 == plain, K2 == plain, K1 == K2, K2 == its "
+              f"schedule's plain version on a {what} "
               f"({stats['num_contacts']} contacts, {numj} joints, {rows} "
               f"slots), gates off and on; max abs diff {errs}", flush=True)
     return errs
@@ -626,32 +752,53 @@ def _split_device_ms(stages, wrapper, args, reps: int) -> dict:
 
 
 def _emit_device_ms(name: str, args, reps: int) -> dict:
-    """K6's or K7's device time alone (``_split_device_ms``): its two
-    launches and the prefix sum on buffers made beforehand, and the whole
-    wrapper (with its EMPTY fills, K6's chunk bounds and the counters);
-    also the wrapper's pace back to back, which the host sets when it
-    exceeds the device time."""
+    """K6's or K7's device time alone (``_split_device_ms``) on buffers
+    made beforehand: K6's two launches and the prefix sum between them,
+    K7's one launch; and the whole wrapper (with K6's EMPTY fills, chunk
+    bounds and counters); also the wrapper's pace back to back, which the
+    host sets when it exceeds the device time."""
     import torch
-    from phyx_tpu_torch.kernels.sweep import (cells, chunk_hix, count_pass,
-                                              emit_pass)
-    chunked = name == "K6"
+    from phyx_tpu_torch.kernels.sweep import (WARP_COUNTS_SMEM, cells,
+                                              chunk_hix, count_pass,
+                                              emit_pass, warp_pass)
     a = tuple(args[k] for k in ("aabb_flat", "order", "dyn", "nact"))
     dev = args["aabb_flat"].device
-    n = cells(args["order"].numel(), chunked)
-    counts = torch.empty((n,), dtype=torch.int32, device=dev)
-    ends = torch.empty((n,), dtype=torch.int64, device=dev)
-    pi, pj = (torch.empty((args["max_pairs"],), dtype=torch.int32,
-                          device=dev) for _ in range(2))
-    hix = chunk_hix(args["aabb_flat"]) if chunked else None
+    i32 = dict(dtype=torch.int32, device=dev)
+    n = args["order"].numel()
+    pi, pj = (torch.empty((args["max_pairs"],), **i32) for _ in range(2))
     wrapper = _wrappers()[name]
-    out = _split_device_ms((
-        ("count", lambda: count_pass(chunked, *a, counts, hix)),
-        ("scan", lambda: torch.cumsum(counts, 0, dtype=torch.int64,
-                                      out=ends)),
-        ("emit", lambda: emit_pass(chunked, *a, counts, ends, pi, pj,
-                                   args["max_pairs"]))),
-        wrapper, args, reps)
+    if name == "K6":
+        counts = torch.empty((cells(n),), **i32)
+        ends = torch.empty((cells(n),), dtype=torch.int64, device=dev)
+        hix = chunk_hix(args["aabb_flat"])
+        stages = (
+            ("count", lambda: count_pass(*a, counts, hix)),
+            ("scan", lambda: torch.cumsum(counts, 0, dtype=torch.int64,
+                                          out=ends)),
+            ("emit", lambda: emit_pass(*a, counts, ends, pi, pj,
+                                       args["max_pairs"])))
+    else:
+        num, ovf = (torch.empty((), **i32) for _ in range(2))
+        scratch = None if 4 * n <= WARP_COUNTS_SMEM else torch.empty(
+            (n,), **i32)
+        stages = (("kernel", lambda: warp_pass(
+            *a, pi, pj, num, ovf, args["max_pairs"], scratch)),)
+    out = _split_device_ms(stages, wrapper, args, reps)
     return dict(out, wrapper_ms=_kernel_ms(wrapper, args, reps=reps))
+
+
+def _device_kernels(fn) -> list:
+    """The names of the CUDA kernels one call of ``fn`` launches, from
+    torch.profiler's device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()                  # warm-up: builds and caches stay outside
+    _sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        _sync()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def _emit_at(name: str, args, what: str, chunked: bool) -> dict:
@@ -662,12 +809,13 @@ def _emit_at(name: str, args, what: str, chunked: bool) -> dict:
                ovf=counts["ovf"], **_emit_device_ms(name, args, reps=20),
                **_bound_emit(args, counts["num"], chunked))
     out["ms"] = out.pop("device_ms")
+    split = ", ".join(f"{key[:-3]} {out[key]:.4f}" for key in (
+        "count_ms", "scan_ms", "emit_ms", "kernel_ms") if key in out)
     print(f"# compare: {name} == plain at {what} ({out['rows_read']} active "
           f"of {args['order'].numel()} rows, {out['walked']} candidates "
-          f"walked): {counts}; device {out['ms']:.4f} ms a call (count "
-          f"{out['count_ms']:.4f}, scan {out['scan_ms']:.4f}, emit "
-          f"{out['emit_ms']:.4f}; the wrapper {out['wrapper_device_ms']:.4f})"
-          f", bound {out['bound_ms']:.6f} ms", flush=True)
+          f"walked): {counts}; device {out['ms']:.4f} ms a call ({split}; "
+          f"the wrapper {out['wrapper_device_ms']:.4f}), bound "
+          f"{out['bound_ms']:.6f} ms", flush=True)
     return out
 
 
@@ -1287,10 +1435,58 @@ def phase_pile10k(card: str) -> dict:
     return dict(k, launches=out["launches"]["K1"], k6=k6, **lv)
 
 
+def _k2_at_frame(st, cfg, what: str) -> dict:
+    """K2 at a main-path frame: against the plain version
+    (``_kernel_at_frame``); K1 == K2 on all passes, K1 timed there; K2's
+    schedule: the levels a pass (``visit_levels``, the levels of its
+    pre-pass), the share of narrow levels (at most ``NARROW`` visits: one
+    warp's) and of the visits in them, the pre-pass alone and the full
+    solve timed behind a sleep kernel (device time), ns a level, and its
+    place in shared memory (``fused_layout``)."""
+    from phyx_tpu_torch.kernels.contact_solver import (NARROW, fused_layout,
+                                                       fused_prepass)
+    from phyx_tpu_torch.kernels.contact_solver_streamed import visit_levels
+    w = _wrappers()
+    k = _kernel_at_frame(st, cfg, w["K2"], "K2")
+    args = k["args"]
+    k1_err = _k1_equals_k2(args)
+    k1_ms = _kernel_ms(w["K1"], args, reps=5)
+    n, r = args["body_flat"].numel() // 8, args["b1"].numel()
+    lv = visit_levels(args["b1"], args["b2"], args["num_contacts"],
+                      args["num_joints"], args["c_cap"], n)
+    widths = lv["offsets"].diff()
+    levels, visits = lv["n_levels"], lv["slots"].numel()
+    narrow = widths <= NARROW
+    dev = _split_device_ms(
+        (("prepass", lambda: fused_prepass(**args)),), w["K2"], args,
+        reps=10)
+    passes = 1 + args["vel_iters"] + args["pos_iters"]
+    place = fused_layout(n, r)
+    out = dict(levels=levels, visits_a_pass=visits,
+               narrow_level_share=int(narrow.sum()) / max(1, levels),
+               narrow_visit_share=int(widths[narrow].sum()) / max(1, visits),
+               prepass_ms=dev["prepass_ms"],
+               ms_full_solve_device=dev["wrapper_device_ms"],
+               ns_per_level=(dev["wrapper_device_ms"] - dev["prepass_ms"])
+               * 1e6 / max(1, levels * passes),
+               level_widths=_level_widths(lv),
+               layout=place, max_abs_err_k1=k1_err, k1_ms_full_solve=k1_ms)
+    print(f"# K2 at {what}: K1 == K2 on all {passes} passes (max abs diff "
+          f"{k1_err}); {levels} levels a pass over {visits} visits, "
+          f"{out['narrow_level_share']:.3f} of them narrow (one warp's, "
+          f"{out['narrow_visit_share']:.3f} of the visits); pre-pass "
+          f"{out['prepass_ms']:.4f} ms, full solve {k['ms_full_solve']:.4f} "
+          f"ms ({out['ms_full_solve_device']:.4f} device), "
+          f"{out['ns_per_level']:.1f} ns a level; K1 {k1_ms:.4f} ms; ring "
+          f"{place['stages']} stages ({place['ring_bytes']} B), "
+          f"accumulators in {'shared' if place['acc_smem'] else 'device'} "
+          f"memory, {place['smem_bytes']} B of shared memory", flush=True)
+    return dict(k, **out)
+
+
 def phase_chain(card: str) -> dict:
     """Bench row C: the 1000-link chain, through K2; K1 on the same input
     must equal it."""
-    w = _wrappers()
     st, cfg, out = _drive("chain", 1000, 300, ("K2",), card)
     # bench.py's joint bar: no overflow, joint residual <= 1e-2
     if out["pair_overflow"] != 0 or not out["residual"] <= 1e-2:
@@ -1298,25 +1494,21 @@ def phase_chain(card: str) -> dict:
                              f"{out['pair_overflow']}, residual "
                              f"{out['residual']}")
     st, stages = _stage_ms(st, cfg, frames=3)
-    k = _kernel_at_frame(st, cfg, w["K2"], "K2")
-    args = k["args"]
-    k1_err = _k1_equals_k2(args)
-    k1_ms = _kernel_ms(w["K1"], args, reps=5)
-    print(f"# compare: K1 == K2 on the chain frame, all passes; max abs "
-          f"diff {k1_err}", flush=True)
+    k = _k2_at_frame(st, cfg, "the chain frame")
+    k1_ms = k["k1_ms_full_solve"]
     out.update(metric="steps/s @ 1000-link chain (port, H100 path)",
                stage_device_ms=stages, solve_ms_full=k["ms_full_solve"],
                k1_ms_full_solve=k1_ms,
                k2_ns_per_visit=k["ns_per_visit"],
                k1_ns_per_visit=k1_ms * 1e6 / k["visits_full_solve"],
+               k2_levels=k["levels"], k2_prepass_ms=k["prepass_ms"],
                solve_share_of_frame=k["ms_full_solve"] / out["frame_ms"])
     print(json.dumps(out), flush=True)
-    return dict(k, launches=out["launches"]["K2"], k1_ms_full_solve=k1_ms)
+    return dict(k, launches=out["launches"]["K2"])
 
 
 def phase_pile1k(card: str) -> dict:
     """Bench row B': the 1k pile, settled 400 frames, through K2."""
-    w = _wrappers()
     st, cfg, out = _drive("pile", 1000, 400, ("K2",), card)
     pen_ratio = out["max_penetration"] / 0.5
     if (out["num_contacts"] <= 0 or out["pair_overflow"] != 0
@@ -1326,11 +1518,13 @@ def phase_pile1k(card: str) -> dict:
                              f"{out['pair_overflow']}, penetration ratio "
                              f"{pen_ratio}")
     st, stages = _stage_ms(st, cfg, frames=3)
-    k = _kernel_at_frame(st, cfg, w["K2"], "K2")
+    k = _k2_at_frame(st, cfg, "the 1k pile frame")
     out.update(metric="steps/s @ 1000-box pile (port, H100 path)",
                penetration_ratio=pen_ratio, stage_device_ms=stages,
                solve_ms_full=k["ms_full_solve"],
+               k1_ms_full_solve=k["k1_ms_full_solve"],
                k2_ns_per_visit=k["ns_per_visit"],
+               k2_levels=k["levels"], k2_prepass_ms=k["prepass_ms"],
                solve_share_of_frame=k["ms_full_solve"] / out["frame_ms"])
     print(json.dumps(out), flush=True)
     return dict(k, launches=out["launches"]["K2"])
@@ -1637,6 +1831,28 @@ def phase_envs64(card: str, envs1024: dict) -> dict:
         **{f"{key}_envs64": v for key, v in lv.items()}})
 
 
+def _k7_counts_in_device_memory(args) -> int:
+    """K7's one launch with its per-row counts in device memory (the
+    placement past 51,200 rows) against the plain version on ``args``: the
+    whole buffer, ``num`` and ``ovf``.  Returns the mismatches (0), raising
+    on any.  Not a launch of the wrapper."""
+    import torch
+    from phyx_tpu_torch.kernels.sweep import warp_pass
+    dev = args["aabb_flat"].device
+    i32 = dict(dtype=torch.int32, device=dev)
+    got = [torch.empty((args["max_pairs"],), **i32) for _ in range(2)]
+    got += [torch.empty((), **i32) for _ in range(2)]
+    warp_pass(args["aabb_flat"], args["order"], args["dyn"], args["nact"],
+              *got, args["max_pairs"],
+              counts=torch.empty((args["order"].numel(),), **i32))
+    ref = _plains()["K7"](**args)
+    bad = sum(int((g != r).sum()) for g, r in zip(got, ref))
+    if bad:
+        raise AssertionError(f"K7 with its counts in device memory: {bad} "
+                             "mismatches against the plain version")
+    return bad
+
+
 def phase_pile500(card: str) -> dict:
     """A 500-box pile under ``broadphase="sap"`` (bench.py's build()
     settings: cap 512, 2,048 pairs): K7, since 512 rows are no whole chunk,
@@ -1657,20 +1873,37 @@ def phase_pile500(card: str) -> dict:
                              f"{out['pair_overflow']}, penetration ratio "
                              f"{pen_ratio}")
     st, stages = _stage_ms(st, cfg, frames=3)
-    k7 = _emit_at("K7", sap_kernel_inputs(integrate_velocities(
-        st.bodies, cfg), cfg.max_pairs, False),
-        "the settled 500-box frame", False)
-    k2 = _kernel_at_frame(st, cfg, _wrappers()["K2"], "K2")
+    k7_args = sap_kernel_inputs(integrate_velocities(st.bodies, cfg),
+                                cfg.max_pairs, False)
+    k7 = _emit_at("K7", k7_args, "the settled 500-box frame", False)
+    # the buffer cut to half the frame's pairs: which pairs survive
+    cut = dict(k7_args, max_pairs=max(1, k7["emitted"] // 2))
+    cut_err, cut_counts, _, _ = _compare_emit("K7", cut)
+    if cut_counts["ovf"] <= 0:
+        raise AssertionError(f"K7 at a cut buffer counted no overflow: "
+                             f"{cut_counts}")
+    kernels = _device_kernels(lambda: _wrappers()["K7"](**k7_args))
+    if len(kernels) != 1:
+        raise AssertionError(f"one K7 call launched {kernels}")
+    dev_err = _k7_counts_in_device_memory(k7_args)
+    print(f"# compare: K7 == plain at the settled 500-box frame with the "
+          f"buffer cut to {cut['max_pairs']} pairs: {cut_counts}; with its "
+          f"per-row counts in device memory, max abs diff {dev_err}; one "
+          f"call launches {kernels}", flush=True)
+    k2 = _k2_at_frame(st, cfg, "the 500-box frame")
     out.update(metric="steps/s @ 500-box pile, broadphase sap (port, H100 "
                "path)", penetration_ratio=pen_ratio, stage_device_ms=stages,
                k7_device_ms=k7["ms"], k7_wrapper_ms=k7["wrapper_ms"],
-               k7_emitted=k7["emitted"])
+               k7_emitted=k7["emitted"], solve_ms_full=k2["ms_full_solve"],
+               k1_ms_full_solve=k2["k1_ms_full_solve"],
+               k2_levels=k2["levels"], k2_prepass_ms=k2["prepass_ms"])
     print(json.dumps(out), flush=True)
-    return dict(k7, launches=out["launches"]["K7"], k2=dict(
-        launches_pile500=out["launches"]["K2"], **{
-            f"{key}_pile500": k2[key] for key in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "ms_full_solve",
-                "ns_per_visit", "contacts")}))
+    return dict(k7, launches=out["launches"]["K7"],
+                max_abs_err_cut=cut_err, ovf_cut=cut_counts["ovf"],
+                max_abs_err_counts_device_memory=dev_err,
+                max_pairs_cut=cut["max_pairs"], kernels_a_call=kernels,
+                k2=dict(launches_pile500=out["launches"]["K2"], **{
+                    f"{key}_pile500": k2[key] for key in _K2_KEYS}))
 
 
 def _row(name, source, replaces, k, timed, **extra) -> dict:
@@ -1680,6 +1913,14 @@ def _row(name, source, replaces, k, timed, **extra) -> dict:
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 **{key: k[key] for key in keys}, library_ms=None,
                 timed=timed, **extra)
+
+
+# K2's numbers at each of its frames in the kernels line
+_K2_KEYS = ("max_abs_err", "max_abs_err_k1", "ms", "plain_ms", "bound_ms",
+            "ms_full_solve", "ms_full_solve_device", "ns_per_visit",
+            "contacts", "levels", "visits_a_pass", "narrow_level_share",
+            "narrow_visit_share", "prepass_ms", "ns_per_level",
+            "k1_ms_full_solve", "layout")
 
 
 def _emit_row(name, replaces, k, small, timed, **extra) -> dict:
@@ -1694,9 +1935,10 @@ def _emit_row(name, replaces, k, small, timed, **extra) -> dict:
                 **{f"{key}_small_frames": small[key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms")},
                 **{key: k[key] for key in (
-                    "count_ms", "scan_ms", "emit_ms", "wrapper_device_ms",
-                    "wrapper_ms", "device_only", "emitted", "ovf",
-                    "rows_read", "walked", "bytes", "ops")}, **extra)
+                    "count_ms", "scan_ms", "emit_ms", "kernel_ms",
+                    "wrapper_device_ms", "wrapper_ms", "device_only",
+                    "emitted", "ovf", "rows_read", "walked", "bytes", "ops")
+                   if key in k}, **extra)
 
 
 def main() -> int:
@@ -1749,12 +1991,13 @@ def main() -> int:
              "phyx_tpu/kernels/contact_solver.py:50", chain,
              f"{passes} at the 1000-link chain frame",
              max_abs_err_small_frames=small["K2"],
-             contacts=chain["contacts"], joints=chain["joints"],
-             launches_pile1k=pile1k["launches"], ms_pile1k=pile1k["ms"],
-             plain_ms_pile1k=pile1k["plain_ms"],
-             bound_ms_pile1k=pile1k["bound_ms"],
-             ms_full_solve_pile1k=pile1k["ms_full_solve"],
-             ns_per_visit_pile1k=pile1k["ns_per_visit"], **pile500["k2"]),
+             joints=chain["joints"],
+             **{key: chain[key] for key in _K2_KEYS if key not in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms",
+                 "ms_full_solve", "ns_per_visit")},
+             launches_pile1k=pile1k["launches"],
+             **{f"{key}_pile1k": pile1k[key] for key in _K2_KEYS},
+             **pile500["k2"]),
         _row("contact_solver_tiled2 (K3)",
              "phyx_tpu_torch/csrc/contact_solver_tiled.cu",
              "phyx_tpu/kernels/contact_solver_tiled2.py:68", k3,
@@ -1793,8 +2036,11 @@ def main() -> int:
                           "rows_read", "walked")}),
         _emit_row("sweep_emit (K7)", "phyx_tpu/kernels/sweep.py:36",
                   pile500, emit_small["K7"],
-                  "the settled 500-box frame, device time of the two "
-                  "launches and the prefix sum"),
+                  "the settled 500-box frame, device time of its one "
+                  "launch", **{key: pile500[key] for key in (
+                      "max_abs_err_cut", "ovf_cut", "max_pairs_cut",
+                      "max_abs_err_counts_device_memory",
+                      "kernels_a_call")}),
     ]
     for k in kernels:
         k["max_abs_err"] = max(v for key, v in k.items()

@@ -3,8 +3,8 @@
 //
 // Replaces the TPU kernel phyx_tpu/kernels/contact_solver_streamed.py,
 // _streamed_kernel (line 58), called through solve_contacts_streamed.  It
-// computes what that kernel computes, and what the serial walk solve_rows
-// (solve_rows.cuh) computes, to the bit: one warm-start pass, vel_iters
+// computes what that kernel computes, and what the serial walk of its plain
+// version computes, to the bit: one warm-start pass, vel_iters
 // velocity passes (coupled-tangent contact visit through c_nt) and
 // pos_iters displacement passes over body columns 5-7, each visiting the
 // contact rows [0, num) and then the joint rows [c_cap, c_cap + numj), with
@@ -20,9 +20,9 @@
 // dependency graph (levels.cuh, shared with the tiled kernels K3 and K5 of
 // contact_solver_tiled.cu): a pre-pass levels the live visits and buckets
 // them into records, then one block runs each pass level by level.  The
-// visit map here (RowsMap) walks the contact rows [0, num), then the joint
-// rows [c_cap, c_cap + numj), the ids clamped into [0, N) as solve_rows
-// clamps them.  Measured depth (chip_smoke.py on an H100): the settled 10k
+// visit map (RowsMap, levels.cuh, shared with K2) walks the contact rows
+// [0, num), then the joint rows [c_cap, c_cap + numj), the ids clamped
+// into [0, N) as the plain version clamps them.  Measured depth (chip_smoke.py on an H100): the settled 10k
 // pile frame has 1,160 levels a pass for 39,280 visits, the 64-env frame
 // 123 for 50,745 (its envs run side by side).
 
@@ -32,41 +32,8 @@
 
 namespace {
 
+using phyx::levels::RowsMap;
 using phyx::levels::Scratch;
-using phyx::levels::Visit;
-
-// K1's visits: contact rows [0, num), then joint rows [c_cap, c_cap +
-// numj), the counts read on the device and clamped into their capacities
-struct RowsMap {
-  const int* b1;
-  const int* b2;
-  const float* con;
-  const float* warm_rows;
-  const int* num_ptr;
-  const int* numj_ptr;  // null: no joint rows
-  int n_cap, c_cap, j_cap;
-  int num;
-
-  __host__ __device__ int table_ints() const { return 0; }
-  __device__ __forceinline__ int begin(int*) {
-    num = *num_ptr;
-    num = num < 0 ? 0 : (num > c_cap ? c_cap : num);
-    int numj = numj_ptr ? *numj_ptr : 0;
-    numj = numj < 0 ? 0 : (numj > j_cap ? j_cap : numj);
-    return num + numj;
-  }
-  __device__ __forceinline__ Visit at(int q, int&) const {
-    const int k = q < num ? q : c_cap + (q - num);
-    return {k, phyx::clamp_id(b1[k], n_cap), phyx::clamp_id(b2[k], n_cap),
-            k >= c_cap};
-  }
-  __device__ __forceinline__ const float* cols(int k) const {
-    return con + 12 * static_cast<size_t>(k);
-  }
-  __device__ __forceinline__ const float* warm(int k) const {
-    return warm_rows + 2 * k;
-  }
-};
 
 cudaError_t launch_levels(const void* b1, const void* b2, const void* con,
                           const void* warm, const void* body, const void* num,

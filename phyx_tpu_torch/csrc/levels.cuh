@@ -77,27 +77,61 @@ struct Visit {
   bool joint;
 };
 
+// ---- the visit map of K1 and K2 ----
+
+// Contact rows [0, num), then joint rows [c_cap, c_cap + numj), the counts
+// read on the device and clamped into their capacities, the ids clamped
+// into [0, N) as the plain version clamps them
+struct RowsMap {
+  const int* b1;
+  const int* b2;
+  const float* con;
+  const float* warm_rows;
+  const int* num_ptr;
+  const int* numj_ptr;  // null: no joint rows
+  int n_cap, c_cap, j_cap;
+  int num;
+
+  __host__ __device__ int table_ints() const { return 0; }
+  __device__ __forceinline__ int begin(int*) {
+    num = *num_ptr;
+    num = num < 0 ? 0 : (num > c_cap ? c_cap : num);
+    int numj = numj_ptr ? *numj_ptr : 0;
+    numj = numj < 0 ? 0 : (numj > j_cap ? j_cap : numj);
+    return num + numj;
+  }
+  __device__ __forceinline__ Visit at(int q, int&) const {
+    const int k = q < num ? q : c_cap + (q - num);
+    return {k, clamp_id(b1[k], n_cap), clamp_id(b2[k], n_cap), k >= c_cap};
+  }
+  __device__ __forceinline__ const float* cols(int k) const {
+    return con + 12 * static_cast<size_t>(k);
+  }
+  __device__ __forceinline__ const float* warm(int k) const {
+    return warm_rows + 2 * k;
+  }
+};
+
 // ---- the pre-pass: levels, buckets, records ----
 
-// One block.  Scratch (ints): lvl (R) each visit's level, cursor (R), loff
-// (R + 1) level offsets, nlev (1), slot_s (R) each record's row slot, and
-// last_g (n_rows), the last-level array when it is not in shared memory
-// (kLastSmem false); (floats): rec (R * 20), acc_s (R * 4), both in level
-// order.  Dynamic shared memory: the map's table, then last[] (kLastSmem).
-template <class Map, bool kLastSmem>
-__global__ void __launch_bounds__(kPrepassThreads) visit_levels(
-    Map map, const float* __restrict__ body, int n_rows,
-    int* __restrict__ lvl, int* __restrict__ cursor, int* __restrict__ loff,
-    int* __restrict__ nlev_out, int* __restrict__ slot_s,
-    float* __restrict__ rec, float* __restrict__ acc_s,
-    int* __restrict__ last_g) {
-  extern __shared__ int dyn_sm[];
+// Run by every thread of one block (any multiple of 32 threads up to
+// 1024).  table: the map's table in shared memory; last (n_rows ints): the
+// last-level array, in shared or device memory.  Out: lvl (R) each visit's
+// level, cursor (R), loff (R + 1) level offsets, *nlev_out the level count,
+// slot_s (R) each record's row slot, rec (R * 20) and acc_s (R * 4, zeroed),
+// both in level order.  Ends without a barrier after the scatter.
+template <class Map>
+__device__ __forceinline__ void prepass(
+    Map map, const float* __restrict__ body, int n_rows, int* table,
+    int* last, int* __restrict__ lvl, int* __restrict__ cursor,
+    int* __restrict__ loff, int* __restrict__ nlev_out,
+    int* __restrict__ slot_s, float* __restrict__ rec,
+    float* __restrict__ acc_s) {
   __shared__ int s_nlev;
   __shared__ int s_warp[32];
-  int* last = kLastSmem ? dyn_sm + map.table_ints() : last_g;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
-  const int v = map.begin(dyn_sm);
+  const int v = map.begin(table);
   for (int b = tid; b < n_rows; b += blockDim.x) last[b] = 0;
   __syncthreads();
 
@@ -213,6 +247,24 @@ __global__ void __launch_bounds__(kPrepassThreads) visit_levels(
     reinterpret_cast<float4*>(acc_s)[pos] = make_float4(0.f, 0.f, 0.f, 0.f);
     slot_s[pos] = x.k;
   }
+}
+
+// The pre-pass as a kernel of its own (K1, K3, K5).  One block.  Scratch
+// (ints): lvl (R), cursor (R), loff (R + 1), nlev (1), slot_s (R), and
+// last_g (n_rows), the last-level array when it is not in shared memory
+// (kLastSmem false); (floats): rec (R * 20), acc_s (R * 4).  Dynamic shared
+// memory: the map's table, then last[] (kLastSmem).
+template <class Map, bool kLastSmem>
+__global__ void __launch_bounds__(kPrepassThreads) visit_levels(
+    Map map, const float* __restrict__ body, int n_rows,
+    int* __restrict__ lvl, int* __restrict__ cursor, int* __restrict__ loff,
+    int* __restrict__ nlev_out, int* __restrict__ slot_s,
+    float* __restrict__ rec, float* __restrict__ acc_s,
+    int* __restrict__ last_g) {
+  extern __shared__ int dyn_sm[];
+  prepass(map, body, n_rows, dyn_sm,
+          kLastSmem ? dyn_sm + map.table_ints() : last_g, lvl, cursor, loff,
+          nlev_out, slot_s, rec, acc_s);
 }
 
 // ---- the level solve ----
@@ -347,8 +399,8 @@ __device__ __forceinline__ void copy_cols(float* cols, float* body, int n,
   }
 }
 
-// One block of kSolveThreads over a body table of n_rows rows.  Gates as
-// in solve_rows: from the second velocity pass on, a pass is skipped once
+// One block of kSolveThreads over a body table of n_rows rows.  Gates:
+// from the second velocity pass on, a pass is skipped once
 // the previous executed pass's residual is below tols[0]; displacement
 // passes likewise with tols[1].  res_out gets the residual of the last
 // executed velocity pass; the accumulators go back to their row slots in

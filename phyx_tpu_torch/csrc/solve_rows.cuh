@@ -1,11 +1,10 @@
-// The visits of every solve kernel, and the serial walk solve_rows of the fused
-// kernel contact_solver.cu (state in shared memory).  The streamed kernel
-// contact_solver_streamed.cu and the tiled kernels contact_solver_tiled.cu run
-// the same visits level by level (levels.cuh); every kernel does each visit's
-// arithmetic here, so the fused and streamed kernels agree to the bit by
-// construction.  Built with -fmad=false: every multiply and add rounds
-// separately, in the order written here, which is the order of the plain
-// version (phyx_tpu_torch/kernels/contact_solver_streamed.py).
+// The visits of every solve kernel.  The fused kernel contact_solver.cu, the
+// streamed kernel contact_solver_streamed.cu and the tiled kernels
+// contact_solver_tiled.cu run them level by level (levels.cuh); every kernel
+// does each visit's arithmetic here, so the fused and streamed kernels agree
+// to the bit by construction.  Built with -fmad=false: every multiply and add
+// rounds separately, in the order written here, which is the order of the
+// plain version (phyx_tpu_torch/kernels/contact_solver_streamed.py).
 //
 // Layout (flat): body rows (N*8) [vx, vy, w, inv_mass, inv_inertia, dvx,
 // dvy, dw]; plain body ids b1/b2 (R); rows con (R*12) and warm (R*2);
@@ -16,9 +15,9 @@
 // rows, then the joint rows.
 //
 // The visits are templates on the body type B: bi[c] reads or writes column c
-// of a body.  B = float* is a row of the body table (the serial walk here); the
-// level solve of levels.cuh passes a view whose working columns sit in shared
-// or device memory.  The arithmetic, and its order, is the same for every B.
+// of a body.  The level solves of levels.cuh and contact_solver.cu pass a view
+// whose working columns sit in shared or device memory.  The arithmetic, and
+// its order, is the same for every B.
 
 #pragma once
 
@@ -239,65 +238,6 @@ __device__ __forceinline__ float joint_pos(B bi, B bj,
   }
   joint_apply(bi, bj, g, px, py, 5);
   return max_p(fabsf(px), fabsf(py));
-}
-
-// ---- the whole solve, walked by one thread ----
-//
-// One warm pass, vel_iters velocity passes, pos_iters displacement passes.
-// From the second velocity pass on, a pass is skipped once the previous
-// executed pass's residual (contacts and joints) is below vtol; the
-// displacement passes likewise with ptol.  A threshold of 0.0 never fires.
-// res_out gets the residual of the last executed velocity pass.
-__device__ __forceinline__ void solve_rows(
-    float* body, float* acc, const int* b1, const int* b2, const float* con,
-    const float* warm, int num, int numj, int c_cap, int n_cap,
-    int vel_iters, int pos_iters, float vtol, float ptol, float* res_out) {
-  const int jend = c_cap + numj;
-#define PHYX_ROW(k)                                   \
-  float* bi = body + 8 * clamp_id(b1[k], n_cap);      \
-  float* bj = body + 8 * clamp_id(b2[k], n_cap);      \
-  const float* c = con + 12 * (k);                    \
-  float* a = acc + 4 * (k);
-
-  for (int k = 0; k < num; ++k) {
-    PHYX_ROW(k)
-    contact_warm(bi, bj, c, warm + 2 * k, a);
-  }
-  for (int k = c_cap; k < jend; ++k) {
-    PHYX_ROW(k)
-    joint_warm(bi, bj, c, warm + 2 * k, a);
-  }
-
-  float res = 0.0f;
-  bool converged = false;
-  for (int p = 0; p < vel_iters && !converged; ++p) {
-    res = 0.0f;
-    for (int k = 0; k < num; ++k) {
-      PHYX_ROW(k)
-      res = max_p(res, contact_vel(bi, bj, c, a));
-    }
-    for (int k = c_cap; k < jend; ++k) {
-      PHYX_ROW(k)
-      res = max_p(res, joint_vel(bi, bj, c, a));
-    }
-    converged = res < vtol;
-  }
-
-  converged = false;
-  for (int p = 0; p < pos_iters && !converged; ++p) {
-    float pres = 0.0f;
-    for (int k = 0; k < num; ++k) {
-      PHYX_ROW(k)
-      pres = max_p(pres, contact_pos(bi, bj, c, a));
-    }
-    for (int k = c_cap; k < jend; ++k) {
-      PHYX_ROW(k)
-      pres = max_p(pres, joint_pos(bi, bj, c, a));
-    }
-    converged = pres < ptol;
-  }
-#undef PHYX_ROW
-  *res_out = res;
 }
 
 }  // namespace phyx

@@ -7,8 +7,7 @@
 // (xlo[j] <= xhi[k]), whose y-interval overlaps k's and where one of the two
 // is dynamic (dyn[k] + dyn[j] > 0).  Emissions go to the pair buffer in the
 // reference's serial order; the first max_pairs are kept, the rest counted
-// (ovf).  The wrapper fills the buffer with EMPTY; the kernels write only
-// the slots below num.  nact is read on the device.
+// (ovf).  nact is read on the device.
 //
 // The two differ in their order, which decides what survives a full
 // buffer, and in their layout:
@@ -33,32 +32,45 @@
 // tests) and extracts hits with a max-reduction.  Here the rows stay in
 // device memory (17,408 rows, 278 KB, at the 64-env scene: L2-resident).
 //
-// The design: count, scan, emit, as K4's (csrc/sweep_tiled.cu).  The serial
-// order is a sum over cells: K7's cells are its source rows, K6's the
-// (source row, target chunk) pairs laid out (s, t, k) over t >= s.  Kernel 1
-// counts each cell's hits with one thread a cell; an exclusive prefix sum
-// over the cells (torch.cumsum in the wrapper, on the device) gives each
-// its first slot; kernel 2 walks again and writes below max_pairs.  That is
-// the serial order and cut with no host sync.  K6's blocks are a quarter of
-// a source chunk against one target chunk; the block stages the target
-// chunk's rows in shared memory and its threads walk them in step, so each
-// candidate's row is one broadcast read.
-//
-// What bounds it: the bytes.  The rows below nact are read once and the
+// What bounds both: the bytes.  The rows below nact are read once and the
 // kept pairs written once; the tests are a few float compares a candidate,
 // far below that at 67 TFLOP/s (chip_smoke.py counts both).  As built, the
-// longest walk's latency sets the time, some 800x the bound: K7's walk is
-// serial in its thread, two dependent loads a candidate, so a warp waits
-// for its longest walk (a ground's ~500 candidates at the 500-box pile);
-// K6's threads walk a visited target chunk in step, every row of it, not
-// only the x-open run (chip_smoke.py; PERF.md has the times).
+// longest walk's latency sets the time.
+//
+// K7, one block, one launch (count, scan and emit in the same block): a
+// warp a sorted row in turn.  The warp's 32 lanes test candidates
+// sj = si+1+lane+32m together, so order[sj] is read coalesced and 32
+// AABB gathers are in flight, not one; __ballot_sync gives the x-open mask
+// (b.x <= a.z, false on NaN, as the serial break) and the hit mask, and
+// only hits before the first lane that is not x-open count; the walk stops
+// at that batch.  The count is a __popc; the per-row counts sit in shared
+// memory (4 n bytes; in a device buffer where they do not fit), a
+// block-wide exclusive scan saturated at max_pairs gives each row its first
+// slot, and in the emit walk a hit's slot is its row's first slot plus the
+// row's hits before it (__popc of the mask below its lane), so the buffer
+// is in (si, sj) order to the bit and slots at or past max_pairs are not
+// written.  The same launch fills the slots from num on with EMPTY and
+// writes num and ovf.  At the 500-box frame its time is the ground rows'
+// walks (~500 candidates, 16 batches of two dependent loads each).
+//
+// K6, count, scan, emit, as K4's (csrc/sweep_tiled.cu).  The serial order
+// is a sum over cells, K6's the (source row, target chunk) pairs laid out
+// (s, t, k) over t >= s.  Kernel 1 counts each cell's hits with one thread
+// a cell; an exclusive prefix sum over the cells (torch.cumsum in the
+// wrapper, on the device) gives each its first slot; kernel 2 walks again
+// and writes below max_pairs.  Its blocks are a quarter of a source chunk
+// against one target chunk; the block stages the target chunk's rows in
+// shared memory and its threads walk them in step, so each candidate's row
+// is one broadcast read.  Its threads walk a visited target chunk in step,
+// every row of it, not only the x-open run (chip_smoke.py; PERF.md has the
+// times).
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kChunk = 1024;    // K6's chunk: the reference's 8 x 128 lanes
-constexpr int kThreads = 256;   // K6: a quarter chunk a block; K7: rows
+constexpr int kThreads = 256;   // K6: a quarter chunk a block
 constexpr int kQuarters = kChunk / kThreads;
 
 // Candidate b (with dyn db) hits source a (with dyn da): b starts before a
@@ -71,9 +83,12 @@ __device__ __forceinline__ int active_rows(const int* nact, int n) {
   return min(max(*nact, 0), n);
 }
 
-// ---- K7: one thread a sorted row ---------------------------------------
+// ---- K7: a warp a sorted row, one block ------------------------------
 
-struct Serial {
+constexpr int kWarpThreads = 1024;  // K7's block: 32 warps
+constexpr unsigned kAll = 0xffffffffu;
+
+struct Rows {
   const float4* aabb;  // (n) [lox, loy, hix, hiy] by body id
   const int* order;    // (n) body id of sorted row
   const int* dyn;      // (n) by body id
@@ -81,46 +96,115 @@ struct Serial {
   int n;
 };
 
-// Walks sorted row si, calling hit(i, j) on each emitted pair of body ids
-// in the walk's order until it returns false.
-template <class Hit>
-__device__ __forceinline__ void walk_serial(const Serial& w, int si, int na,
-                                            Hit hit) {
+// Walks sorted row si with the warp: batch m tests sj = si+1+32m+lane on
+// every lane, and batch(h, i, j) gets the hits h before the first lane
+// that is not x-open (bit L: lane L's candidate), body i and this lane's
+// body j.  The walk ends after the batch holding a closed lane, or when
+// batch returns false.  Uniform over the warp.
+template <class Batch>
+__device__ __forceinline__ void walk_warp(const Rows& w, int si, int na,
+                                          int lane, Batch batch) {
   const int i = w.order[si];
   const float4 a = w.aabb[i];
   const int di = w.dyn[i];
-  for (int sj = si + 1; sj < na; ++sj) {
-    const int j = w.order[sj];
-    const float4 b = w.aabb[j];
-    if (!(b.x <= a.z)) break;
-    if (hits(a, di, b, w.dyn[j]) && !hit(i, j)) break;
+  for (int base = si + 1; base < na; base += 32) {
+    const int sj = base + lane;
+    int j = 0;
+    bool open = false, hit = false;
+    if (sj < na) {
+      j = w.order[sj];
+      const float4 b = w.aabb[j];
+      open = b.x <= a.z;
+      hit = hits(a, di, b, w.dyn[j]);
+    }
+    const unsigned closed = __ballot_sync(kAll, !open);
+    const unsigned before = closed ? (1u << (__ffs(closed) - 1)) - 1u : kAll;
+    const unsigned h = __ballot_sync(kAll, hit) & before;
+    if (!batch(h, i, j) || closed) return;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    serial_count(Serial w, int* __restrict__ counts) {
-  const int si = blockIdx.x * kThreads + threadIdx.x;
-  if (si >= w.n) return;
+// One block: counts, scan, emit.  counts: shared memory (kSmem, 4 n bytes
+// of dynamic shared memory) or the device buffer counts_g (n ints).
+template <bool kSmem>
+__global__ void __launch_bounds__(kWarpThreads)
+    warp_sweep(Rows w, int* __restrict__ counts_g, int max_pairs, int empty,
+               int* __restrict__ pi, int* __restrict__ pj,
+               int* __restrict__ num_out, int* __restrict__ ovf_out) {
+  extern __shared__ int counts_s[];
+  __shared__ long long s_warp[32];
+  int* counts = kSmem ? counts_s : counts_g;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = kWarpThreads / 32;
   const int na = active_rows(w.nact, w.n);
-  int c = 0;
-  if (si < na) walk_serial(w, si, na, [&](int, int) { ++c; return true; });
-  counts[si] = c;
-}
 
-__global__ void __launch_bounds__(kThreads)
-    serial_emit(Serial w, const int* __restrict__ counts,
-                const long long* __restrict__ ends, int max_pairs,
-                int* __restrict__ pi, int* __restrict__ pj) {
-  const int si = blockIdx.x * kThreads + threadIdx.x;
-  if (si >= w.n || counts[si] == 0) return;
-  // exclusive prefix: the emissions of the rows before si
-  long long slot = ends[si] - counts[si];
-  if (slot >= max_pairs) return;
-  walk_serial(w, si, active_rows(w.nact, w.n), [&](int i, int j) {
-    pi[slot] = min(i, j);
-    pj[slot] = max(i, j);
-    return ++slot < max_pairs;
-  });
+  for (int si = warp; si < na; si += nwarps) {
+    int c = 0;
+    walk_warp(w, si, na, lane, [&](unsigned h, int, int) {
+      c += __popc(h);
+      return true;
+    });
+    if (lane == 0) counts[si] = c;
+  }
+  __syncthreads();
+
+  // exclusive prefix sum of the counts, each saturated at max_pairs (the
+  // slots past it are not written); the total in 64 bits
+  long long carry = 0;
+  for (int base = 0; base < na; base += kWarpThreads) {
+    const int idx = base + tid;
+    const long long x = idx < na ? counts[idx] : 0;
+    long long y = x;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long u = __shfl_up_sync(kAll, y, o);
+      if (lane >= o) y += u;
+    }
+    if (lane == 31) s_warp[warp] = y;
+    __syncthreads();
+    if (warp == 0) {
+      long long z = s_warp[lane];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const long long u = __shfl_up_sync(kAll, z, o);
+        if (lane >= o) z += u;
+      }
+      s_warp[lane] = z;
+    }
+    __syncthreads();
+    const long long excl = carry + (warp ? s_warp[warp - 1] : 0) + y - x;
+    if (idx < na)
+      counts[idx] = static_cast<int>(excl < max_pairs ? excl : max_pairs);
+    carry += s_warp[nwarps - 1];
+    __syncthreads();
+  }
+  const int num = static_cast<int>(carry < max_pairs ? carry : max_pairs);
+
+  for (int s = num + tid; s < max_pairs; s += kWarpThreads) {
+    pi[s] = empty;
+    pj[s] = empty;
+  }
+  const unsigned below = (1u << lane) - 1u;
+  for (int si = warp; si < na; si += nwarps) {
+    int slot = counts[si];
+    // a row with hits has its successor's first slot past its own, until
+    // the buffer is full
+    const int next = si + 1 < na ? counts[si + 1] : num;
+    if (slot >= next) continue;
+    walk_warp(w, si, na, lane, [&](unsigned h, int i, int j) {
+      const int at = slot + __popc(h & below);
+      if ((h >> lane & 1u) && at < max_pairs) {
+        pi[at] = min(i, j);
+        pj[at] = max(i, j);
+      }
+      slot += __popc(h);
+      return slot < max_pairs;
+    });
+  }
+  if (tid == 0) {
+    *num_out = num;
+    *ovf_out = static_cast<int>(carry - num);
+  }
 }
 
 // ---- K6: a block a (quarter source chunk, target chunk) ------------------
@@ -246,12 +330,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-Serial serial(const void* aabb, const void* order, const void* dyn,
-              const void* nact, int n) {
-  return {static_cast<const float4*>(aabb), static_cast<const int*>(order),
-          static_cast<const int*>(dyn), static_cast<const int*>(nact), n};
-}
-
 Chunked chunked(const void* aabb, const void* order, const void* dyn,
                 const void* nact, const void* chunk_hix, int nb) {
   return {static_cast<const float4*>(aabb), static_cast<const int*>(order),
@@ -266,33 +344,34 @@ dim3 chunked_grid(int nb) { return dim3(nb * kQuarters, nb); }
 // Plain C entries for ctypes: each launches on `stream` and returns
 // cudaGetLastError() (0 = launched).  Pointers are device pointers; aabb is
 // (n, 4) f32 [lox, loy, hix, hiy], 16-byte aligned; order and dyn (n) int32;
-// nact () int32.  counts is int32 a cell, ends its inclusive prefix sum in
-// int64; pi and pj (max_pairs) int32 get the slots [0, min(total,
+// nact () int32.  pi and pj (max_pairs) int32 get the slots [0, min(total,
 // max_pairs)).
 
-// K7: aabb and dyn by body id; one cell a sorted row, counts (n).
-extern "C" int phyx_sweep_serial_count(const void* aabb, const void* order,
-                                       const void* dyn, const void* nact,
-                                       void* counts, int n, void* stream) {
-  serial_count<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      serial(aabb, order, dyn, nact, n), static_cast<int*>(counts));
+// K7: aabb and dyn by body id; one launch writes the whole buffer (EMPTY
+// from num on), num and ovf (() int32).  counts: a device buffer of n ints,
+// used when smem_counts is 0 (the counts not in shared memory).
+extern "C" int phyx_sweep_warp(const void* aabb, const void* order,
+                               const void* dyn, const void* nact,
+                               void* counts, void* pi, void* pj, void* num,
+                               void* ovf, int n, int max_pairs, int empty,
+                               int smem_counts, void* stream) {
+  const Rows w{static_cast<const float4*>(aabb),
+               static_cast<const int*>(order), static_cast<const int*>(dyn),
+               static_cast<const int*>(nact), n};
+  const auto kernel = smem_counts ? warp_sweep<true> : warp_sweep<false>;
+  const size_t smem = smem_counts ? 4 * static_cast<size_t>(n) : 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<1, kWarpThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      w, static_cast<int*>(counts), max_pairs, empty, static_cast<int*>(pi),
+      static_cast<int*>(pj), static_cast<int*>(num), static_cast<int*>(ovf));
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int phyx_sweep_serial_emit(const void* aabb, const void* order,
-                                      const void* dyn, const void* nact,
-                                      const void* counts, const void* ends,
-                                      void* pi, void* pj, int n,
-                                      int max_pairs, void* stream) {
-  serial_emit<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(
-      serial(aabb, order, dyn, nact, n), static_cast<const int*>(counts),
-      static_cast<const long long*>(ends), max_pairs, static_cast<int*>(pi),
-      static_cast<int*>(pj));
-  return static_cast<int>(cudaGetLastError());
-}
-
+// K6's two launches: counts is int32 a cell, ends its inclusive prefix sum
+// in int64.
 // K6: aabb, order and dyn sorted, n = 1024 nb; chunk_hix (nb) f32; one cell
 // a (source row, target chunk t >= its chunk), counts (nb (nb + 1) / 2 *
 // 1024) in (s, t, k) order.

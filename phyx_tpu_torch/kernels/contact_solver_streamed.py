@@ -10,11 +10,11 @@ same levels), then one block runs each pass level by level, the visits of
 a level (which touch disjoint bodies) side by side.  The pre-pass and the
 level solve are ``csrc/levels.cuh``'s, shared with the tiled kernels K3
 and K5 (``kernels/contact_solver_tiled.py``), which level their slab walk
-with ``levels_of`` and ``levels_walk`` here.  Its visits are those
-of ``csrc/solve_rows.cuh``, shared with the fused kernel
-(``kernels/contact_solver.py``), which walks them serially with its state in
-shared memory.  Built with ``nvcc`` at first use (``kernels/nvcc.py``) and
-called through ``ctypes``.
+with ``levels_of`` and ``levels_walk`` here, and with the fused kernel K2
+(``kernels/contact_solver.py``), which runs K1's schedule with its state
+in shared memory.  Its visits are those of ``csrc/solve_rows.cuh``.  Built
+with ``nvcc`` at first use (``kernels/nvcc.py``) and called through
+``ctypes``.
 
 * ``solve_contacts_streamed`` is the wrapper: on CUDA tensors it launches
   the kernel (or raises); on CPU tensors it runs the plain version.

@@ -4,16 +4,20 @@ kernels of ``broadphase.broadphase_sap_kernel``.  K4, the slab-windowed
 sweep of the same reference module, is in ``kernels/sweep_tiled.py``.
 
 The kernels are in ``csrc/sweep_emit.cu`` (built with ``nvcc`` at first
-use, ``kernels/nvcc.py``, and called through ``ctypes``); each counts the
+use, ``kernels/nvcc.py``, and called through ``ctypes``).  K6 counts the
 hits of its cells, takes their prefix sum on the device and writes them in
-order.
+order (two launches and a ``torch.cumsum``); K7 does all three in one
+launch of one block, a warp a sorted row.
 
 * ``sweep_emit_v2`` (K6) and ``sweep_emit`` (K7) are the wrappers: on CUDA
   tensors they launch the kernel (or raise); on CPU tensors they run the
-  plain version.  ``count_pass`` and ``emit_pass`` are their two
-  launches, on buffers the caller gives.
+  plain version.  ``count_pass`` and ``emit_pass`` are K6's two launches,
+  ``warp_pass`` K7's one, on buffers the caller gives.
 * ``sweep_emit_v2_plain`` and ``sweep_emit_plain`` compute the same buffer
-  and counters as vectorized torch operations.
+  and counters as vectorized torch operations; ``sweep_emit_warp_plain`` is
+  K7's schedule (32-lane batches with their x-open and hit masks, each
+  hit's slot from its row's first slot and its rank in the batch) in torch,
+  equal to ``sweep_emit_plain``.
 
 What they compute: bodies sorted by AABB min x, the active ones (``nact``)
 first.  Source row k tests the rows j > k below ``nact`` and emits the body
@@ -49,6 +53,9 @@ from phyx_tpu_torch.types import EMPTY
 
 SOURCE = nvcc.CSRC / "sweep_emit.cu"
 CHUNK = 1024   # K6's chunk rows
+LANES = 32     # K7: the candidates a warp tests at once
+# K7's per-row counts in shared memory up to 200 KB (n <= 51,200)
+WARP_COUNTS_SMEM = 200 * 1_024
 
 
 @functools.lru_cache(maxsize=1)
@@ -57,12 +64,11 @@ def build() -> tuple:
     (ctypes library, nvcc's report or "" when the build was cached)."""
     lib, report = nvcc.load(SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.phyx_sweep_serial_count.argtypes = [ptr] * 5 + [i32, ptr]
-    lib.phyx_sweep_serial_emit.argtypes = [ptr] * 8 + [i32, i32, ptr]
+    lib.phyx_sweep_warp.argtypes = [ptr] * 9 + [i32] * 4 + [ptr]
     lib.phyx_sweep_chunked_count.argtypes = [ptr] * 6 + [i32, ptr]
     lib.phyx_sweep_chunked_emit.argtypes = [ptr] * 8 + [i32, i32, ptr]
-    for fn in (lib.phyx_sweep_serial_count, lib.phyx_sweep_serial_emit,
-               lib.phyx_sweep_chunked_count, lib.phyx_sweep_chunked_emit):
+    for fn in (lib.phyx_sweep_warp, lib.phyx_sweep_chunked_count,
+               lib.phyx_sweep_chunked_emit):
         fn.restype = ctypes.c_int
     return lib, report
 
@@ -114,11 +120,11 @@ def _require_cuda(device) -> None:
         raise NotImplementedError(f"no sweep kernel for {device.type}")
 
 
-def cells(n: int, chunked: bool) -> int:
-    """Cells the count pass fills: K6's (source row, target chunk) cells
-    with t >= s, laid out (s, t, k), when ``chunked``, else K7's rows."""
+def cells(n: int) -> int:
+    """Cells K6's count pass fills: its (source row, target chunk) cells
+    with t >= s, laid out (s, t, k)."""
     nb = n // CHUNK
-    return nb * (nb + 1) // 2 * CHUNK if chunked else n
+    return nb * (nb + 1) // 2 * CHUNK
 
 
 def chunk_hix(aabb_flat: torch.Tensor) -> torch.Tensor:
@@ -126,49 +132,42 @@ def chunk_hix(aabb_flat: torch.Tensor) -> torch.Tensor:
     return aabb_flat.view(-1, CHUNK, 4)[:, :, 2].amax(1)
 
 
-def count_pass(chunked: bool, aabb_flat, order, dyn, nact, counts,
-               hix=None) -> None:
-    """The first launch, on the current stream: each cell's hits into
-    ``counts`` ((cells(N, chunked),) int32), K6's cells with its chunk
-    bounds ``hix`` when ``chunked``, else K7's rows.  Raises if the launch
-    was refused.  (The wrapper's part; called alone only to time it.)"""
+def count_pass(aabb_flat, order, dyn, nact, counts, hix) -> None:
+    """K6's first launch, on the current stream: each cell's hits into
+    ``counts`` ((cells(N),) int32), with the chunk bounds ``hix``.  Raises
+    if the launch was refused.  (The wrapper's part; called alone only to
+    time it.)"""
     lib, _ = build()
-    n = order.shape[0]
-    if chunked:
-        _launch(lib.phyx_sweep_chunked_count, aabb_flat, order, dyn, nact,
-                hix, counts, n // CHUNK)
-    else:
-        _launch(lib.phyx_sweep_serial_count, aabb_flat, order, dyn, nact,
-                counts, n)
+    _launch(lib.phyx_sweep_chunked_count, aabb_flat, order, dyn, nact, hix,
+            counts, order.shape[0] // CHUNK)
 
 
-def emit_pass(chunked: bool, aabb_flat, order, dyn, nact, counts, ends, pi,
-              pj, max_pairs: int) -> None:
-    """The second launch, on the current stream: each cell walks again and
-    writes its hits from the slot ``ends - counts`` (``ends`` the (cells,)
-    int64 inclusive prefix sum of ``counts``) while below ``max_pairs``.
-    Raises if the launch was refused."""
+def emit_pass(aabb_flat, order, dyn, nact, counts, ends, pi, pj,
+              max_pairs: int) -> None:
+    """K6's second launch, on the current stream: each cell walks again
+    and writes its hits from the slot ``ends - counts`` (``ends`` the
+    (cells,) int64 inclusive prefix sum of ``counts``) while below
+    ``max_pairs``.  Raises if the launch was refused."""
     lib, _ = build()
+    _launch(lib.phyx_sweep_chunked_emit, aabb_flat, order, dyn, nact, counts,
+            ends, pi, pj, order.shape[0] // CHUNK, max_pairs)
+
+
+def warp_pass(aabb_flat, order, dyn, nact, pi, pj, num, ovf,
+              max_pairs: int, counts=None) -> None:
+    """K7's one launch, on the current stream, into the buffers given:
+    ``pi``, ``pj`` (max_pairs,) int32 whole (EMPTY from num on), ``num``
+    and ``ovf`` () int32.  The per-row counts go to ``counts``, (N,) int32
+    device scratch, when it is given (the wrapper gives it where 4 N bytes
+    pass ``WARP_COUNTS_SMEM``; a check on the card gives it at any N),
+    else to shared memory.  Raises if the launch was refused."""
     n = order.shape[0]
-    fn, size = ((lib.phyx_sweep_chunked_emit, n // CHUNK) if chunked
-                else (lib.phyx_sweep_serial_emit, n))
-    _launch(fn, aabb_flat, order, dyn, nact, counts, ends, pi, pj, size,
-            max_pairs)
-
-
-def _sweep(chunked: bool, aabb_flat, order, dyn, nact, max_pairs: int):
-    """Both launches and the prefix sum between them, with no host sync."""
-    dev = aabb_flat.device
-    _require_cuda(dev)
-    counts = torch.empty((cells(order.shape[0], chunked),),
-                         dtype=torch.int32, device=dev)
-    pi, pj = _empty_buffer(max_pairs, dev)
-    count_pass(chunked, aabb_flat, order, dyn, nact, counts,
-               chunk_hix(aabb_flat) if chunked else None)
-    ends = torch.cumsum(counts, 0, dtype=torch.int64)
-    emit_pass(chunked, aabb_flat, order, dyn, nact, counts, ends, pi, pj,
-              max_pairs)
-    return (pi, pj) + _counters(ends[-1], max_pairs)
+    if counts is None and 4 * n > WARP_COUNTS_SMEM:
+        raise ValueError(f"{n} rows' counts do not fit shared memory: give "
+                         "counts scratch")
+    lib, _ = build()
+    _launch(lib.phyx_sweep_warp, aabb_flat, order, dyn, nact, counts, pi, pj,
+            num, ovf, n, max_pairs, EMPTY, int(counts is None))
 
 
 def sweep_emit(aabb_flat: torch.Tensor,   # (4 N,) f32 by body id
@@ -178,14 +177,21 @@ def sweep_emit(aabb_flat: torch.Tensor,   # (4 N,) f32 by body id
                max_pairs: int):
     """K7.  Returns (pi, pj, num, ovf) — see the module docstring.  CUDA
     tensors launch the kernel; CPU tensors take the plain version.
-    ``sweep_emit.launches`` counts kernel launches (one a call: the count
-    and the emit pass)."""
-    check_inputs(aabb_flat, order, dyn, nact, max_pairs)
-    if aabb_flat.device.type == "cpu":
+    ``sweep_emit.launches`` counts kernel launches (one a call)."""
+    n = check_inputs(aabb_flat, order, dyn, nact, max_pairs)
+    dev = aabb_flat.device
+    if dev.type == "cpu":
         return sweep_emit_plain(aabb_flat, order, dyn, nact, max_pairs)
-    out = _sweep(False, aabb_flat, order, dyn, nact, max_pairs)
+    _require_cuda(dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    pi, pj = (torch.empty((max_pairs,), **i32) for _ in range(2))
+    num, ovf = (torch.empty((), **i32) for _ in range(2))
+    counts = (None if 4 * n <= WARP_COUNTS_SMEM
+              else torch.empty((n,), **i32))
+    warp_pass(aabb_flat, order, dyn, nact, pi, pj, num, ovf, max_pairs,
+              counts)
     sweep_emit.launches += 1
-    return out
+    return pi, pj, num, ovf
 
 
 sweep_emit.launches = 0
@@ -202,11 +208,18 @@ def sweep_emit_v2(aabb_flat: torch.Tensor,   # (4 N,) f32 sorted
     n = check_inputs(aabb_flat, order, dyn, nact, max_pairs)
     if n % CHUNK:
         raise ValueError(f"K6 needs whole chunks of {CHUNK} rows, got {n}")
-    if aabb_flat.device.type == "cpu":
+    dev = aabb_flat.device
+    if dev.type == "cpu":
         return sweep_emit_v2_plain(aabb_flat, order, dyn, nact, max_pairs)
-    out = _sweep(True, aabb_flat, order, dyn, nact, max_pairs)
+    _require_cuda(dev)
+    # two launches and the prefix sum between them, with no host sync
+    counts = torch.empty((cells(n),), dtype=torch.int32, device=dev)
+    pi, pj = _empty_buffer(max_pairs, dev)
+    count_pass(aabb_flat, order, dyn, nact, counts, chunk_hix(aabb_flat))
+    ends = torch.cumsum(counts, 0, dtype=torch.int64)
+    emit_pass(aabb_flat, order, dyn, nact, counts, ends, pi, pj, max_pairs)
     sweep_emit_v2.launches += 1
-    return out
+    return (pi, pj) + _counters(ends[-1], max_pairs)
 
 
 sweep_emit_v2.launches = 0
@@ -254,6 +267,72 @@ def sweep_emit_plain(aabb_flat, order, dyn, nact, max_pairs: int):
     key = torch.sort(torch.cat(hits)).values
     return _emitted(order, torch.div(key, n, rounding_mode="floor"),
                     key % n, max_pairs)
+
+
+def sweep_emit_warp_plain(aabb_flat, order, dyn, nact, max_pairs: int,
+                          lanes: int = LANES):
+    """K7's schedule in torch: every walking row tests its next ``lanes``
+    candidates sj = si+1+lanes m+lane at once; the x-open mask (lox <= the
+    row's hix, False on NaN or past nact) and the hit mask keep only the
+    hits before the first closed lane, and the rows with a closed lane stop.
+    A row's count is the sum of its masks' hits; an exclusive prefix sum
+    saturated at ``max_pairs`` gives each row its first slot, and a hit's
+    slot is that plus the row's hits in earlier batches and the hits below
+    its lane in its batch.  Slots below ``max_pairs`` get the pair, the
+    rest of the buffer EMPTY.  Equal to ``sweep_emit_plain``; it reads
+    ``nact`` and the walking set back to the host: for tests and
+    comparison with the kernel."""
+    n = order.shape[0]
+    device = order.device
+    na = min(max(int(nact), 0), n)
+    ids = order.to(torch.int64)
+    lox, loy, hix, hiy = aabb_flat.view(n, 4)[ids].unbind(1)
+    d = dyn[ids]
+    lane = torch.arange(lanes, device=device)
+    rows = torch.arange(na, device=device)
+    batch = 0
+    found = []        # (row, batch, lane) of each counted hit
+    while rows.numel():
+        sj = rows[:, None] + 1 + batch * lanes + lane[None, :]
+        live = sj < na
+        q = torch.where(live, sj, 0)
+        src = rows[:, None]
+        is_open = live & (lox[q] <= hix[src])
+        hit = (is_open & (loy[q] <= hiy[src]) & (loy[src] <= hiy[q])
+               & (d[src] + d[q] > 0))
+        closed = ~is_open
+        first = torch.where(closed.any(1), closed.int().argmax(1), lanes)
+        counted = hit & (lane[None, :] < first[:, None])
+        r, ln = torch.nonzero(counted, as_tuple=True)
+        found.append(torch.stack([rows[r], torch.full_like(r, batch), ln]))
+        rows = rows[first == lanes]
+        batch += 1
+    found = (torch.cat(found, 1) if found
+             else torch.zeros((3, 0), dtype=torch.int64, device=device))
+    row, bat, ln = found
+    counts = torch.bincount(row, minlength=na)
+    total = int(counts.sum())
+    first_slot = torch.clamp(torch.cumsum(counts, 0) - counts, max=max_pairs)
+    # the row's hits in earlier batches and below the lane in this one:
+    # its rank among the row's hits in (batch, lane) order
+    key = (row * (batch + 1) + bat) * lanes + ln
+    srt = torch.argsort(key)
+    rank = torch.empty_like(srt)
+    rank[srt] = torch.arange(srt.numel(), device=device)
+    rank = rank - (torch.cumsum(counts, 0) - counts)[row]
+    slot = first_slot[row] + rank
+    keep = slot < max_pairs
+    pi, pj = _empty_buffer(max_pairs, device)
+    oi = order[row[keep]]
+    oj = order[(row + 1 + bat * lanes + ln)[keep]]
+    pi[slot[keep]] = torch.minimum(oi, oj)
+    pj[slot[keep]] = torch.maximum(oi, oj)
+    m = min(total, max_pairs)
+
+    def count(x):
+        return torch.full((), x, dtype=torch.int32, device=device)
+
+    return pi, pj, count(m), count(total - m)
 
 
 def sweep_emit_v2_plain(aabb_flat, order, dyn, nact, max_pairs: int):
