@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --quick    # device, build and the small checks
+    python3 chip_smoke.py --parent DIR   # also time DIR's K4 and K6
 
 Phases; any failure raises and the script exits non-zero:
 
@@ -15,9 +16,12 @@ Phases; any failure raises and the script exits non-zero:
              memory by bulk copies), in one source K3 and
              K5, the slab-major and the routed tiled solves (the x-rank
              embedded body table, run level by level with K1's schedule),
-             K4, the slab-windowed sweep, and in one source K6 and K7, the
-             chunked sweep emission (count, prefix sum, emit) and the
-             serial one (one launch: a warp a sorted row).
+             K4, the slab-windowed sweep (one launch: count, single-pass
+             scan and write), and in one source K6 and K7, the chunked
+             sweep emission (one launch over tiles, single-pass scan) and
+             the serial one (one launch: a warp a sorted row).  With
+             ``--parent DIR``, also DIR's K4 and K6 sources (an earlier
+             commit of the port), for timing beside this tree's.
 3. compare — each solve kernel against the plain torch version on the
              packed solve input of small frames on the card, gates off and
              on: K1 and K2 on a 200-box pile (contacts only), a loaded
@@ -36,15 +40,19 @@ Phases; any failure raises and the script exits non-zero:
              rows whose levels are wider than its 128 solving threads,
              and with no live row (K1 == K2 on both).  K4 against
              its plain version on a two-slab banded 64-env mega-scene
-             (true-x accept on and off), the same in the segmented layout,
-             and numpy-made rows that force ``ovf_window`` and, with a
-             small budget, ``ovf_drop``: pairs equal on [0, num), counters
-             equal; K4's device time on the first.  K6 and K7 against their
-             plain versions on a 200-box pile frame (cap 1024), numpy-made
-             rows over three chunks with a long static ground and inactive
-             tail rows, and the same at a small budget, where both count
-             ``ovf`` and keep different pairs: the whole buffer, ``num``
-             and ``ovf`` equal; K6's device time on the first.  Then the
+             (true-x accept on and off) and at a budget cut to half its
+             pairs, the same in the segmented layout, numpy-made rows that
+             force ``ovf_window`` and, with a small budget, ``ovf_drop``,
+             and rows whose first tile's pairs outgrow K4's stage (budget
+             whole and cut): pairs equal on [0, num), counters equal; K4's
+             device time on the first.  K6 and K7 against their plain
+             versions on a 200-box pile frame (cap 1024), numpy-made rows
+             over three chunks with a long static ground and inactive tail
+             rows, and the same at a small budget, where both count
+             ``ovf`` and keep different pairs; K6 also on those rows out of
+             x order (whole and cut) and with NaN AABBs, where its proof
+             must refuse the short walk: the whole buffer, ``num`` and
+             ``ovf`` equal; K6's device time on the first.  Then the
              whole step on the card against the step on the CPU: a 60-box
              pile, a 20-link chain, a loaded bridge, a 150-box tiled pile
              through K3 and through K5, an 8-env banded mega-scene through
@@ -55,8 +63,9 @@ Phases; any failure raises and the script exits non-zero:
              32,256 pairs, sap_grid window 192 / 8 hits, 10+6 passes)
              through ``rollout``: a 200-frame settle (the bench's 300,
              cut for the script's time) in which no step may wait for the
-             device, then frames timed by the slope
-             t(2n) - t(n) over n, each launching K1 once and no other
+             device, a discarded warm-up window of n frames (in every
+             scene), then frames timed by the slope t(2n) - t(n) over n,
+             each launching K1 once and no other
              kernel; finite state, contacts present, bench.py's quality bar
              met; the device time of the step's stages (CUDA events); K1
              against its plain version at the frame's shapes on fewer
@@ -111,8 +120,10 @@ Phases; any failure raises and the script exits non-zero:
              counter 0, penetration ratio <= 0.2, finite state;
              env-steps/s beside the reference's per-env fingerprint; stage
              times; K4 against its plain version at the settled frame,
-             both timed (K4's two launches and prefix sum on device behind
-             a sleep kernel, and the wrapper's pace); K3 against its
+             both timed (K4's one launch on device behind a sleep kernel,
+             and the wrapper's pace; with ``--parent``, DIR's K4 and this
+             tree's in turns, parent, change, change, parent); K3 against
+             its
              levels plain version on all passes there (the serial one
              would take ~10 minutes), its pre-pass and placements checked
              and timed as at the 20k frame.
@@ -122,9 +133,12 @@ Phases; any failure raises and the script exits non-zero:
              240-frame settle without host waits, slope timing, K6 and K1
              once a frame each and no other kernel; every overflow counter
              0, penetration ratio <= 0.2, finite state; env-steps/s beside
-             the 1024-env scene's; stage times; K6 against its plain version
-             at the settled frame and timed (device time behind a sleep
-             kernel); K1 against its plain version (warm + 1 + 1 passes)
+             the 1024-env scene's (null, with a line saying so, where the
+             slope reads below the device stages' sum); stage times; K6 against its plain version
+             at the settled frame and at its buffer cut to half the frame's
+             pairs, and timed (device time behind a sleep kernel; with
+             ``--parent``, DIR's K6 beside it as K4's); K1 against its
+             plain version (warm + 1 + 1 passes)
              and timed on all passes, and its level checks and its
              placement in device memory as at the 10k frame.
 10. pile500 — a 500-box pile under ``broadphase="sap"`` at bench.py's
@@ -134,8 +148,9 @@ Phases; any failure raises and the script exits non-zero:
              against its plain version at the settled frame and at a
              buffer cut to half its pairs (``ovf`` counted), with its
              per-row counts in device memory (the placement past 51,200
-             rows), one launch a call (torch.profiler's device kernels),
-             and timed; K2 as at the chain frame.
+             rows), and timed; K2 as at the chain frame.  Then one call
+             each of K4, K6 and K7 at their settled frames in one
+             torch.profiler session: each launches one CUDA kernel.
 
 Prints a JSON line per main-path phase (physics, rate, stage times), a
 JSON line of the kernels, the card's ``nvidia-smi`` name and power limit,
@@ -194,6 +209,67 @@ def _plains() -> dict:
                 K7=sweep_emit_plain)
 
 
+# the parent tree's K4 and K6 wrappers (``--parent``), by name
+_PARENT: dict = {}
+
+
+def _parent_wrappers(tree: str) -> dict:
+    """K4's and K6's wrappers from another tree of the port (its
+    ``phyx_tpu_torch/kernels/sweep.py`` and ``sweep_tiled.py``, their
+    sources built from its own ``csrc``), loaded beside this tree's
+    package under other module names: for timing an earlier commit's
+    kernels on the same frames in the same call.  The tree's modules
+    import their helpers from this tree's package, its ``sweep_tiled``
+    from its own ``sweep``."""
+    import importlib.util
+    import pathlib
+    root = pathlib.Path(tree).resolve() / "phyx_tpu_torch"
+    key = "phyx_tpu_torch.kernels.sweep"
+    import phyx_tpu_torch.kernels.sweep  # noqa: F401
+    own = sys.modules[key]
+    mods = {}
+    try:
+        for name in ("sweep", "sweep_tiled"):
+            spec = importlib.util.spec_from_file_location(
+                f"parent_{name}", root / "kernels" / f"{name}.py")
+            mod = importlib.util.module_from_spec(spec)
+            sys.modules[spec.name] = mod
+            spec.loader.exec_module(mod)
+            mod.SOURCE = root / "csrc" / mod.SOURCE.name
+            mods[name] = mod
+            sys.modules[key] = mods["sweep"]
+    finally:
+        sys.modules[key] = own
+    return dict(K6=mods["sweep"].sweep_emit_v2,
+                K4=mods["sweep_tiled"].sweep_emit_tiled)
+
+
+def _versus_parent(name: str, args, reps: int = 20) -> dict:
+    """With ``--parent``: the parent's wrapper of kernel ``name`` and this
+    tree's on the same ``args``, each call's device time behind a sleep
+    kernel (``_split_device_ms``), in turns parent, change, change,
+    parent; the parent's outputs must equal this tree's (K4: pairs on
+    [0, num) and the counters; K6: all)."""
+    if name not in _PARENT:
+        return {}
+    import torch
+    old, new = _PARENT[name], _wrappers()[name]
+    a, b = old(**args), new(**args)
+    num = int(b[2])
+    same = all(int(x) == int(y) for x, y in zip(a[2:], b[2:])) and all(
+        torch.equal(x[:num] if name == "K4" else x,
+                    y[:num] if name == "K4" else y)
+        for x, y in zip(a[:2], b[:2]))
+    if not same:
+        raise AssertionError(f"the parent's {name} and this tree's differ")
+    ms = [_split_device_ms((), fn, args, reps)["wrapper_device_ms"]
+          for fn in (old, new, new, old)]
+    print(f"# versus the parent: {name} a call, device ms, parent "
+          f"{ms[0]:.4f} / {ms[3]:.4f}, change {ms[1]:.4f} / {ms[2]:.4f}",
+          flush=True)
+    return dict(parent_ms=[ms[0], ms[3]], change_ms=[ms[1], ms[2]])
+
+
 def _reset_counts():
     for wrapper in _wrappers().values():
         wrapper.launches = 0
@@ -235,6 +311,12 @@ def phase_build() -> None:
     print(f"# build: {time.perf_counter() - t0:.2f} s for "
           f"{', '.join(m.SOURCE.name for m in modules)}, in parallel",
           flush=True)
+    # the parent tree's sweeps (--parent), for timing beside them
+    parents = list({w.__module__: sys.modules[w.__module__]
+                    for w in _PARENT.values()}.values())
+    nvcc.compile_all([m.SOURCE for m in parents])
+    for m in parents:
+        m.build()
     for name, report in reports.items():
         for line in report.splitlines():
             print(f"#   nvcc {name}: {line}")
@@ -569,6 +651,36 @@ def _numpy_rows(seed: int, max_pairs: int) -> dict:
                 window_rows=W, truex=None)
 
 
+def _dense_rows(seed: int, max_pairs: int) -> dict:
+    """tests/test_torch_sweep_onepass.py's rows on the card: one slab (K
+    1024, W 2048) whose first tile of 256 sweeps is packed into 5 units of
+    x with overlapping y, ~17,000 pairs in that tile, past its stage of
+    2,048 pairs."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    K, W, nact, nfirst = 1024, 2048, 1100, 256
+    xlo = np.sort(np.concatenate([rng.uniform(0.0, 5.0, nfirst),
+                                  rng.uniform(5.0, 100.0, nact - nfirst)]))
+    xhi = xlo + rng.uniform(0.5, 1.5, nact)
+    ylo = rng.uniform(0.0, 2.0, nact)
+    yhi = ylo + rng.uniform(1.0, 3.0, nact)
+    pad = np.full(W - nact, np.inf)
+    rows = np.stack([np.concatenate([c, pad]) for c in (xlo, ylo, xhi, yhi)])
+    dyn = np.concatenate([(rng.random(nact) < 0.7), np.zeros(W - nact)])
+    order = np.concatenate([rng.permutation(nact),
+                            np.full(W - nact, np.iinfo(np.int32).max)])
+
+    def card(x, dtype):
+        return torch.from_numpy(x.astype(dtype)).cuda()
+
+    return dict(rows=card(rows, np.float32), dyn=card(dyn, np.int32),
+                order=card(order, np.int32),
+                nact=torch.full((), nact, dtype=torch.int32, device="cuda"),
+                max_pairs=max_pairs, n_slabs=1, slab_stride=K,
+                window_rows=W, truex=None)
+
+
 def _compare_sweep(args) -> tuple:
     """K4 against its plain version on the same CUDA tensors: the pairs on
     [0, num) and the three counters.  Returns (mismatches, the plain
@@ -594,12 +706,17 @@ def _compare_sweep(args) -> tuple:
 
 def phase_compare_sweep() -> dict:
     """K4 against its plain version on small inputs on the card: the
-    two-slab banded env mega-scene (true-x accept on and off), the same in
-    the segmented layout, and numpy-made rows that force ``ovf_window`` and,
-    with a small budget, ``ovf_drop``.  Returns the max mismatch count and,
-    on the first input, K4's device time, its plain version's and the
-    bound."""
+    two-slab banded env mega-scene (true-x accept on and off, and its
+    budget cut to half its pairs), the same in the segmented layout,
+    numpy-made rows that force ``ovf_window`` and, with a small budget,
+    ``ovf_drop``, and rows whose first tile's pairs outgrow the kernel's
+    stage (the budget whole and cut), where the tile walks again (the
+    schedule's plain version counts such tiles).  Returns the max mismatch
+    count, the kernels one call launches and, on the first input, K4's
+    device time, its plain version's and the bound."""
     from phyx_tpu_torch.broadphase import _sap_tiled_sort_stage, compute_aabbs
+    from phyx_tpu_torch.kernels.sweep_tiled import \
+        sweep_emit_tiled_onepass_plain
     cases = []
     for layout in ("banded", "segmented"):
         cfg, bodies = _jittered_envs(layout == "segmented")
@@ -608,33 +725,49 @@ def phase_compare_sweep() -> dict:
         cases += [(f"64-env {layout} mega-scene, true-x accept", args, None),
                   (f"64-env {layout} mega-scene, true-x off",
                    dict(args, truex=None), None)]
+    half = int(_plains()["K4"](**cases[0][1])[2]) // 2
+    cases += [("64-env banded mega-scene, budget cut to half its pairs",
+               dict(cases[0][1], max_pairs=half), "ovf_drop")]
     cases += [(f"numpy rows, budget {mp}", _numpy_rows(7, mp), counter)
               for mp, counter in ((8192, "ovf_window"), (1024, "ovf_drop"))]
+    cases += [(f"rows past a tile's stage, budget {mp}", _dense_rows(3, mp),
+               counter) for mp, counter in ((32768, "stage"),
+                                            (9216, "ovf_drop"))]
     worst, out = 0, {}
     for what, args, counter in cases:
         err, counts, plain_ms = _compare_sweep(args)
         worst = max(worst, err)
         if not out:
+            _PROBES["K4"] = (what, lambda a=args: _wrappers()["K4"](**a))
             out = dict(ms=_sweep_device_ms(args, reps=20)["device_ms"],
                        plain_ms=plain_ms,
                        bound_ms=_bound_sweep(args, counts["num"])["bound_ms"])
+        again = sweep_emit_tiled_onepass_plain(**args)[5]
         if counter is None and not (counts["num"] > 300
                                     and counts["ovf_drop"] == 0
                                     and counts["ovf_window"] == 0):
             raise AssertionError(f"K4 on the {what}: {counts}")
-        if counter is not None and counts[counter] <= 0:
+        if counter == "stage" and not again:
+            raise AssertionError(f"K4 on the {what}: no tile outgrew its "
+                                 "stage")
+        if counter not in (None, "stage") and counts[counter] <= 0:
             raise AssertionError(f"K4 on the {what}: no {counter}: {counts}")
         print(f"# compare: K4 == plain on the {what} ({args['n_slabs']} "
               f"slabs of {args['slab_stride']}, window "
-              f"{args['window_rows']}): {counts}", flush=True)
+              f"{args['window_rows']}): {counts}, {again} tiles walked "
+              "again", flush=True)
     return dict(out, max_abs_err=worst)
 
 
-def _emit_rows(n: int, na: int, seed: int, max_pairs: int) -> dict:
+def _emit_rows(n: int, na: int, seed: int, max_pairs: int,
+               perturb: str = "") -> dict:
     """tests/test_torch_sweep_emit.py's rows on the card: ``na`` of ``n``
     active, a long static ground across every chunk (row 0), inactive tail
-    rows sorted last with their real AABBs.  Returns (K6's arguments, K7's
-    arguments)."""
+    rows sorted last with their real AABBs.  ``perturb``: "unsorted" puts
+    the active rows out of x order (a run reversed, rows swapped across
+    chunks), "nan" puts NaN in a lox inside chunk 1, a hiy and a hix of
+    chunk 2 (tests/test_torch_sweep_onepass.py's cases).  Returns (K6's
+    arguments, K7's arguments)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
@@ -648,6 +781,15 @@ def _emit_rows(n: int, na: int, seed: int, max_pairs: int) -> dict:
                     1).astype(np.float32)
     keys = np.where(np.arange(n) < na, aabb[:, 0], np.inf)
     order = np.argsort(keys, kind="stable").astype(np.int32)
+    if perturb == "unsorted":
+        order[1100:1160] = order[1100:1160][::-1]
+        a = rng.choice(np.arange(1, 1000), 12, replace=False)
+        b = rng.choice(np.arange(2100, na), 12, replace=False)
+        order[a], order[b] = order[b], order[a].copy()
+    elif perturb == "nan":
+        for row, col in ((order[1500], 0), (order[1700], 3),
+                         (order[2200], 2)):
+            aabb[row, col] = np.nan
 
     def card(x):
         return torch.from_numpy(np.ascontiguousarray(x)).cuda()
@@ -712,9 +854,9 @@ def _bound_emit(args, num: int, chunked: bool) -> dict:
 
 
 def _split_device_ms(stages, wrapper, args, reps: int) -> dict:
-    """A sweep's device time alone: its launches and the prefix sum
-    between them (``stages``, (name, callable) on buffers made beforehand)
-    each timed on CUDA events, then the whole wrapper on ``args``, each
+    """A sweep's device time alone: its launch (``stages``, (name,
+    callable) on buffers made beforehand; none to time only the wrapper)
+    timed on CUDA events, then the whole wrapper on ``args``, each
     ``reps`` times, all queued behind a ~100 ms sleep kernel so that the
     events time device work, not the host's pace (``device_only`` says
     whether the host's enqueue did finish inside the sleep).  Returns ms
@@ -752,15 +894,13 @@ def _split_device_ms(stages, wrapper, args, reps: int) -> dict:
 
 
 def _emit_device_ms(name: str, args, reps: int) -> dict:
-    """K6's or K7's device time alone (``_split_device_ms``) on buffers
-    made beforehand: K6's two launches and the prefix sum between them,
-    K7's one launch; and the whole wrapper (with K6's EMPTY fills, chunk
-    bounds and counters); also the wrapper's pace back to back, which the
-    host sets when it exceeds the device time."""
+    """K6's or K7's device time alone (``_split_device_ms``): its one
+    launch on buffers made beforehand, and the whole wrapper; also the
+    wrapper's pace back to back, which the host sets when it exceeds the
+    device time."""
     import torch
-    from phyx_tpu_torch.kernels.sweep import (WARP_COUNTS_SMEM, cells,
-                                              chunk_hix, count_pass,
-                                              emit_pass, warp_pass)
+    from phyx_tpu_torch.kernels.sweep import (WARP_COUNTS_SMEM, chunked_pass,
+                                              warp_pass)
     a = tuple(args[k] for k in ("aabb_flat", "order", "dyn", "nact"))
     dev = args["aabb_flat"].device
     i32 = dict(dtype=torch.int32, device=dev)
@@ -768,15 +908,9 @@ def _emit_device_ms(name: str, args, reps: int) -> dict:
     pi, pj = (torch.empty((args["max_pairs"],), **i32) for _ in range(2))
     wrapper = _wrappers()[name]
     if name == "K6":
-        counts = torch.empty((cells(n),), **i32)
-        ends = torch.empty((cells(n),), dtype=torch.int64, device=dev)
-        hix = chunk_hix(args["aabb_flat"])
-        stages = (
-            ("count", lambda: count_pass(*a, counts, hix)),
-            ("scan", lambda: torch.cumsum(counts, 0, dtype=torch.int64,
-                                          out=ends)),
-            ("emit", lambda: emit_pass(*a, counts, ends, pi, pj,
-                                       args["max_pairs"])))
+        counters = torch.empty((2,), **i32)
+        stages = (("kernel", lambda: chunked_pass(
+            *a, pi, pj, counters, args["max_pairs"])),)
     else:
         num, ovf = (torch.empty((), **i32) for _ in range(2))
         scratch = None if 4 * n <= WARP_COUNTS_SMEM else torch.empty(
@@ -787,18 +921,45 @@ def _emit_device_ms(name: str, args, reps: int) -> dict:
     return dict(out, wrapper_ms=_kernel_ms(wrapper, args, reps=reps))
 
 
-def _device_kernels(fn) -> list:
-    """The names of the CUDA kernels one call of ``fn`` launches, from
-    torch.profiler's device events."""
+# kernels whose launches a call are counted, by name: (where, one call)
+_PROBES: dict = {}
+
+
+def _kernels_a_call() -> dict:
+    """The names of the CUDA kernels one call of each probe in ``_PROBES``
+    launches, from torch.profiler's device events, all in one profiler
+    session (a second session in a process has returned no device events
+    on the card): each call is queued behind a short sleep kernel, which
+    marks where its kernels start.  Raises unless each call launches
+    exactly one kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()                  # warm-up: builds and caches stay outside
+    for _, fn in _PROBES.values():
+        fn()                  # warm-up: builds and caches stay outside
     _sync()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _, fn in _PROBES.values():
+            torch.cuda._sleep(1000)
+            fn()
         _sync()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    names, out = iter(_PROBES), {}
+    for e in events:
+        if "spin_kernel" in e.name or "sleep" in e.name.lower():
+            out[next(names)] = []
+        elif out:
+            out[list(out)[-1]].append(e.name)
+    for name, (where, _) in _PROBES.items():
+        kernels = out.get(name)
+        if kernels is None or len(kernels) != 1:
+            raise AssertionError(f"one {name} call at {where} launched "
+                                 f"{kernels} (device events: "
+                                 f"{[e.name for e in events]})")
+        print(f"# kernels a call: one {name} call at {where} launches "
+              f"{kernels}", flush=True)
+    return out
 
 
 def _emit_at(name: str, args, what: str, chunked: bool) -> dict:
@@ -809,8 +970,7 @@ def _emit_at(name: str, args, what: str, chunked: bool) -> dict:
                ovf=counts["ovf"], **_emit_device_ms(name, args, reps=20),
                **_bound_emit(args, counts["num"], chunked))
     out["ms"] = out.pop("device_ms")
-    split = ", ".join(f"{key[:-3]} {out[key]:.4f}" for key in (
-        "count_ms", "scan_ms", "emit_ms", "kernel_ms") if key in out)
+    split = f"kernel {out['kernel_ms']:.4f}"
     print(f"# compare: {name} == plain at {what} ({out['rows_read']} active "
           f"of {args['order'].numel()} rows, {out['walked']} candidates "
           f"walked): {counts}; device {out['ms']:.4f} ms a call ({split}; "
@@ -823,11 +983,14 @@ def phase_compare_emit() -> dict:
     """K6 and K7 against their plain versions on small inputs on the card:
     a 200-box pile frame at cap 1024, numpy-made rows over three chunks
     with a long static ground and inactive tail rows, and the same at a
-    small budget, where both count ``ovf`` and keep different pairs.
-    Returns, per kernel, the max mismatch count and, on the pile frame, its
-    device time, its plain version's and the bound."""
+    small budget, where both count ``ovf`` and keep different pairs; K6
+    also on those rows out of x order (whole and at a cut budget) and with
+    NaN AABBs, where its proof must refuse the short walk.  Returns, per
+    kernel, the max mismatch count and, on the pile frame, its device
+    time, its plain version's and the bound, and K6's kernels a call."""
     from phyx_tpu_torch import SimConfig, scenes
     from phyx_tpu_torch.broadphase import sap_kernel_inputs
+    from phyx_tpu_torch.kernels.sweep import sorted_chunks
     from phyx_tpu_torch.step import integrate_velocities, rollout
     cfg = SimConfig(max_bodies=1024, max_pairs=2048, broadphase="sap_grid",
                     sap_window=64, solver_backend="pallas")
@@ -836,6 +999,9 @@ def phase_compare_emit() -> dict:
     out = {name: _emit_at(name, sap_kernel_inputs(
         bodies, cfg.max_pairs, name == "K6"), "the 200-box pile frame",
         name == "K6") for name in ("K6", "K7")}
+    k6_args = sap_kernel_inputs(bodies, cfg.max_pairs, True)
+    _PROBES["K6"] = ("the 200-box pile frame",
+                     lambda: _wrappers()["K6"](**k6_args))
     for budget in (16384, 256):
         k6, k7 = _emit_rows(3072, 2500, 2, budget)
         kept = {}
@@ -855,6 +1021,21 @@ def phase_compare_emit() -> dict:
               f"chunks (2500 active, a static ground, inactive tail), "
               f"budget {budget}: {counts}; K6 and K7 keep {which} pairs",
               flush=True)
+    # K6 on rows out of x order and on NaN rows: its proof must refuse the
+    # short walk there (the schedule's plain version shows which chunks it
+    # proves)
+    for perturb, budget in (("unsorted", 65536), ("nan", 16384),
+                            ("unsorted", 1000)):
+        k6 = _emit_rows(3072, 2500, 4, budget, perturb)[0]
+        err, counts, _, _ = _compare_emit("K6", k6)
+        out["K6"]["max_abs_err"] = max(out["K6"]["max_abs_err"], err)
+        proof = sorted_chunks(k6["aabb_flat"], k6["nact"])
+        if all(proof) or counts["num"] < 256:
+            raise AssertionError(f"K6 on the {perturb} rows, budget "
+                                 f"{budget}: {counts}, proof {proof}")
+        print(f"# compare: K6 == plain on numpy rows over 3 chunks, "
+              f"{perturb}, budget {budget}: {counts}; chunks proven sorted "
+              f"{proof}", flush=True)
     return out
 
 
@@ -1050,6 +1231,29 @@ def _stage_ms(st, cfg, frames: int):
     return st, out
 
 
+def _checked_rate(out: dict, stages: dict) -> None:
+    """E-64's rate: its frame takes at least its device stages' time
+    (``_stage_ms``); where the slope reads less, it is no rate: that is
+    printed on its own line and the steps/s recorded as null (``rate_ok``
+    False).  (E-64 is host-bound, and its slope read below its device
+    stages in earlier runs; a device-bound scene's slope and its stage sum
+    differ either way by the two timings' own spread.)"""
+    device = sum(stages[k] for k in ("contact_stage", "solve_stage",
+                                     "finish_stage"))
+    out.update(device_stages_ms=device, rate_ok=out["frame_ms"] >= device)
+    if not out["rate_ok"]:
+        print(f"# {out['scene']} ({out['boxes']} boxes): the slope reads "
+              f"{out['frame_ms']:.3f} ms a frame, below its {device:.3f} ms "
+              "of device stages: no rate recorded", flush=True)
+        out["steps_per_s"] = None
+
+
+def _per_env(out: dict, envs: int):
+    """env-steps/s, null where the scene's rate is."""
+    rate = out["steps_per_s"]
+    return None if rate is None else rate * envs
+
+
 def _bench_cfg(scene: str, boxes: int):
     """bench.py's build() configuration for a scene (bench.py:160-198)."""
     from phyx_tpu_torch import SimConfig
@@ -1070,8 +1274,9 @@ def _drive(scene: str, boxes: int, settle: int, kernels: tuple, card: str,
            built=None):
     """Builds the scene on the card (``built`` = (cfg, state), else
     bench.py's build() of ``scene``), settles it with every synchronising
-    call an error, then times frames by the slope t(2n) - t(n) with the
-    launch counts zeroed just before and read just after: each kernel named
+    call an error, runs a warm-up window of n frames, then times frames by
+    the slope t(2n) - t(n) with the launch counts zeroed just before and
+    read just after: each kernel named
     in ``kernels`` must launch once a frame, every other never.  Returns
     (state, cfg, dict of the run's numbers)."""
     import torch
@@ -1099,6 +1304,10 @@ def _drive(scene: str, boxes: int, settle: int, kernels: tuple, card: str,
     frame_s = (time.perf_counter() - t0) / 2
     # about 10 s for the 3n frames, 4 <= n <= 100
     n = max(4, min(100, int(10.0 / max(frame_s, 1e-3) / 3)))
+    # a warm-up window of n frames, discarded: the first window after the
+    # probe can carry a one-off cost, which would lower the slope
+    st = rollout(st, cfg, n)
+    _sync()
 
     _reset_counts()
     t0 = time.perf_counter()
@@ -1123,7 +1332,7 @@ def _drive(scene: str, boxes: int, settle: int, kernels: tuple, card: str,
         raise AssertionError(f"{scene}: non-finite body state")
     out = dict(scene=scene, boxes=boxes, steps_per_s=1.0 / per_frame,
                frame_ms=per_frame * 1e3, frames_timed=3 * n,
-               frames_total=settle + 2 + 3 * n, settle_s=settle_s,
+               frames_total=settle + 2 + 4 * n, settle_s=settle_s,
                t_n_s=t1 - t0, t_2n_s=t2 - t1, launches=launches,
                max_bodies=cfg.max_bodies, max_pairs=cfg.max_pairs,
                max_joints=cfg.max_joints, card=card, **stats)
@@ -1681,25 +1890,18 @@ def _bound_sweep(args, num: int) -> dict:
 
 
 def _sweep_device_ms(args, reps: int) -> dict:
-    """K4's device time alone (``_split_device_ms``): its two launches and
-    the prefix sum on buffers made beforehand, and the whole wrapper."""
+    """K4's device time alone (``_split_device_ms``): its one launch on
+    buffers made beforehand, and the whole wrapper."""
     import torch
-    from phyx_tpu_torch.kernels.sweep_tiled import count_pass, emit_pass
+    from phyx_tpu_torch.kernels.sweep_tiled import tiled_pass
     a = tuple(args[k] for k in ("rows", "dyn", "order", "nact", "max_pairs",
                                 "n_slabs", "slab_stride", "window_rows",
                                 "truex"))
-    dev = args["rows"].device
-    n = args["n_slabs"] * args["slab_stride"]
-    counts = torch.empty((n,), dtype=torch.int32, device=dev)
-    ends = torch.empty((n,), dtype=torch.int64, device=dev)
-    ovf_window = torch.zeros((1,), dtype=torch.int32, device=dev)
-    pi, pj = (torch.empty((args["max_pairs"],), dtype=torch.int32,
-                          device=dev) for _ in range(2))
-    return _split_device_ms((
-        ("count", lambda: count_pass(*a, counts, ovf_window)),
-        ("scan", lambda: torch.cumsum(counts, 0, dtype=torch.int64,
-                                      out=ends)),
-        ("emit", lambda: emit_pass(*a, counts, ends, pi, pj))),
+    i32 = dict(dtype=torch.int32, device=args["rows"].device)
+    pi, pj = (torch.empty((args["max_pairs"],), **i32) for _ in range(2))
+    counters = torch.empty((3,), **i32)
+    return _split_device_ms(
+        (("kernel", lambda: tiled_pass(*a, pi, pj, counters)),),
         _wrappers()["K4"], args, reps)
 
 
@@ -1735,6 +1937,9 @@ def phase_envs1024(card: str) -> dict:
     # the kernel's device time, and the wrapper's pace as the frame calls it
     device = _sweep_device_ms(args, reps=20)
     wrapper_ms = _kernel_ms(_wrappers()["K4"], args, reps=20)
+    parent = _versus_parent("K4", args)
+    _PROBES["K4"] = (f"the settled {ENVS}-env frame",
+                     lambda: _wrappers()["K4"](**args))
     k3_args = solve_inputs(st, cfg)
     if "cum" not in k3_args:
         raise AssertionError(f"the {ENVS}-env frame did not take the "
@@ -1756,9 +1961,9 @@ def phase_envs1024(card: str) -> dict:
                 env_steps_per_s=out["env_steps_per_s"],
                 ms=device["device_ms"], plain_ms=plain_ms,
                 emitted=counts["num"], wrapper_ms=wrapper_ms,
-                **{k: device[k] for k in ("count_ms", "scan_ms", "emit_ms",
-                                          "wrapper_device_ms",
+                **{k: device[k] for k in ("kernel_ms", "wrapper_device_ms",
                                           "device_only")},
+                **{f"{k}_versus_parent": v for k, v in parent.items()},
                 **bound,
                 k3={f"{key}_envs1024": v for key, v in dict(
                     k3, launches=out["launches"]["K3"]).items()})
@@ -1791,9 +1996,22 @@ def phase_envs64(card: str, envs1024: dict) -> dict:
                           built=_envs_scene(n_envs, 256))
     pen_ratio = _envs_bar(out, n_envs)
     st, stages = _stage_ms(st, cfg, frames=3)
-    k6 = _emit_at("K6", sap_kernel_inputs(integrate_velocities(
-        st.bodies, cfg), cfg.max_pairs, True),
-        f"the settled {n_envs}-env frame", True)
+    _checked_rate(out, stages)
+    k6_args = sap_kernel_inputs(integrate_velocities(st.bodies, cfg),
+                                cfg.max_pairs, True)
+    k6 = _emit_at("K6", k6_args, f"the settled {n_envs}-env frame", True)
+    # the buffer cut to half the frame's pairs: which pairs survive
+    cut = dict(k6_args, max_pairs=max(1, k6["emitted"] // 2))
+    cut_err, cut_counts, _, _ = _compare_emit("K6", cut)
+    if cut_counts["ovf"] <= 0:
+        raise AssertionError(f"K6 at a cut buffer counted no overflow: "
+                             f"{cut_counts}")
+    print(f"# compare: K6 == plain at the settled {n_envs}-env frame with "
+          f"the buffer cut to {cut['max_pairs']} pairs: {cut_counts}",
+          flush=True)
+    parent = _versus_parent("K6", k6_args)
+    _PROBES["K6"] = (f"the settled {n_envs}-env frame",
+                     lambda: _wrappers()["K6"](**k6_args))
     # K1 at this frame's shapes, against the plain version on warm + 1 + 1
     # passes, then timed on those and on all passes
     k1 = _wrappers()["K1"]
@@ -1810,7 +2028,7 @@ def phase_envs64(card: str, envs1024: dict) -> dict:
     lv = _k1_level_checks(dict(args=k1_args, ms_full_solve=k1_ms),
                           f"the settled {n_envs}-env frame")
     out.update(metric=f"env-steps/s @ {n_envs} envs x 256 boxes (port, H100 "
-               "path)", env_steps_per_s=out["steps_per_s"] * n_envs,
+               "path)", env_steps_per_s=_per_env(out, n_envs),
                env_steps_per_s_1024_envs=envs1024["env_steps_per_s"],
                envs=n_envs, contacts_per_env=out["num_contacts"] / n_envs,
                penetration_ratio=pen_ratio, stage_device_ms=stages,
@@ -1820,7 +2038,9 @@ def phase_envs64(card: str, envs1024: dict) -> dict:
                k1_ns_per_visit=k1_ms * 1e6 / k1_visits, k1_levels=lv,
                reference_fingerprint=REF_E, cut="none (bench.py's default)")
     print(json.dumps(out), flush=True)
-    return dict(k6, launches=out["launches"]["K6"], k1={
+    return dict(k6, launches=out["launches"]["K6"], max_abs_err_cut=cut_err,
+                ovf_cut=cut_counts["ovf"], max_pairs_cut=cut["max_pairs"],
+                **{f"{k}_versus_parent": v for k, v in parent.items()}, k1={
         "launches_envs64": out["launches"]["K1"],
         "max_abs_err_envs64": k1_err, "ms_envs64": k1_ms_short,
         "plain_ms_envs64": k1_plain_ms,
@@ -1882,14 +2102,13 @@ def phase_pile500(card: str) -> dict:
     if cut_counts["ovf"] <= 0:
         raise AssertionError(f"K7 at a cut buffer counted no overflow: "
                              f"{cut_counts}")
-    kernels = _device_kernels(lambda: _wrappers()["K7"](**k7_args))
-    if len(kernels) != 1:
-        raise AssertionError(f"one K7 call launched {kernels}")
+    _PROBES["K7"] = ("the settled 500-box frame",
+                     lambda: _wrappers()["K7"](**k7_args))
     dev_err = _k7_counts_in_device_memory(k7_args)
     print(f"# compare: K7 == plain at the settled 500-box frame with the "
           f"buffer cut to {cut['max_pairs']} pairs: {cut_counts}; with its "
-          f"per-row counts in device memory, max abs diff {dev_err}; one "
-          f"call launches {kernels}", flush=True)
+          f"per-row counts in device memory, max abs diff {dev_err}",
+          flush=True)
     k2 = _k2_at_frame(st, cfg, "the 500-box frame")
     out.update(metric="steps/s @ 500-box pile, broadphase sap (port, H100 "
                "path)", penetration_ratio=pen_ratio, stage_device_ms=stages,
@@ -1901,7 +2120,7 @@ def phase_pile500(card: str) -> dict:
     return dict(k7, launches=out["launches"]["K7"],
                 max_abs_err_cut=cut_err, ovf_cut=cut_counts["ovf"],
                 max_abs_err_counts_device_memory=dev_err,
-                max_pairs_cut=cut["max_pairs"], kernels_a_call=kernels,
+                max_pairs_cut=cut["max_pairs"],
                 k2=dict(launches_pile500=out["launches"]["K2"], **{
                     f"{key}_pile500": k2[key] for key in _K2_KEYS}))
 
@@ -1935,25 +2154,36 @@ def _emit_row(name, replaces, k, small, timed, **extra) -> dict:
                 **{f"{key}_small_frames": small[key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms")},
                 **{key: k[key] for key in (
-                    "count_ms", "scan_ms", "emit_ms", "kernel_ms",
-                    "wrapper_device_ms", "wrapper_ms", "device_only",
+                    "kernel_ms", "wrapper_device_ms", "wrapper_ms",
+                    "device_only",
                     "emitted", "ovf", "rows_read", "walked", "bytes", "ops")
                    if key in k}, **extra)
 
 
 def main() -> int:
+    import argparse
+
     import torch
-    quick = sys.argv[1:] == ["--quick"]
-    if sys.argv[1:] and not quick:
-        raise SystemExit("usage: python3 chip_smoke.py [--quick]")
+    parser = argparse.ArgumentParser(description="Smoke run of the port on "
+                                     "one GPU (see the module docstring).")
+    parser.add_argument("--quick", action="store_true",
+                        help="stop after the build and the small checks")
+    parser.add_argument("--parent", metavar="DIR",
+                        help="a tree of an earlier commit of the port: its "
+                        "K4 and K6 are timed beside this tree's at their "
+                        "settled frames")
+    opts = parser.parse_args()
     card = phase_device()
+    if opts.parent:
+        _PARENT.update(_parent_wrappers(opts.parent))
     phase_build()
     small = phase_compare()
     tiled = phase_compare_tiled()
     sweep_small = phase_compare_sweep()
     emit_small = phase_compare_emit()
     phase_step_parity()
-    if quick:
+    if opts.quick:
+        _kernels_a_call()
         return 0
     pile = phase_pile10k(card)
     chain = phase_chain(card)
@@ -1962,6 +2192,7 @@ def main() -> int:
     envs = phase_envs1024(card)
     envs64 = phase_envs64(card, envs)
     pile500 = phase_pile500(card)
+    a_call = _kernels_a_call()
     passes = "warm + 1 velocity + 1 displacement pass"
     k3, k5 = pile20k["k3"], pile20k["k5"]
     # the tiled kernels' level schedule at the 20k frame
@@ -2017,30 +2248,33 @@ def main() -> int:
                                            "plain_ms", "bound_ms",
                                            "bound_by")},
              library_ms=None,
-             timed=f"the settled {ENVS}-env frame, device time of the "
-                   "two launches and the prefix sum",
+             timed=f"the settled {ENVS}-env frame, device time of its "
+                   "one launch",
              **{f"{key}_small_frames": sweep_small[key] for key in (
                  "max_abs_err", "ms", "plain_ms", "bound_ms")},
-             **{key: envs[key] for key in (
-                 "count_ms", "scan_ms", "emit_ms", "wrapper_ms",
-                 "wrapper_device_ms", "device_only", "sweeps", "rows_read",
-                 "bytes")},
-             emitted_pairs=envs["emitted"]),
+             **{key: envs[key] for key in envs if key in (
+                 "kernel_ms", "wrapper_ms", "wrapper_device_ms",
+                 "device_only", "sweeps", "rows_read", "bytes")
+                or key.endswith("_versus_parent")},
+             kernels_a_call=a_call["K4"], emitted_pairs=envs["emitted"]),
         _emit_row("sweep_emit_v2 (K6)", "phyx_tpu/kernels/sweep.py:371",
                   envs64, emit_small["K6"],
-                  "the settled 64-env frame, device time of the two "
-                  "launches and the prefix sum",
+                  "the settled 64-env frame, device time of its one "
+                  "launch", kernels_a_call=a_call["K6"],
                   launches_pile10k_check=pile["k6"]["sap_launches"], **{
                       f"{key}_pile10k": pile["k6"][key] for key in (
                           "ms", "plain_ms", "bound_ms", "emitted",
-                          "rows_read", "walked")}),
+                          "rows_read", "walked")},
+                  **{key: envs64[key] for key in envs64 if key in (
+                      "max_abs_err_cut", "ovf_cut", "max_pairs_cut")
+                     or key.endswith("_versus_parent")}),
         _emit_row("sweep_emit (K7)", "phyx_tpu/kernels/sweep.py:36",
                   pile500, emit_small["K7"],
                   "the settled 500-box frame, device time of its one "
-                  "launch", **{key: pile500[key] for key in (
+                  "launch", kernels_a_call=a_call["K7"],
+                  **{key: pile500[key] for key in (
                       "max_abs_err_cut", "ovf_cut", "max_pairs_cut",
-                      "max_abs_err_counts_device_memory",
-                      "kernels_a_call")}),
+                      "max_abs_err_counts_device_memory")}),
     ]
     for k in kernels:
         k["max_abs_err"] = max(v for key, v in k.items()

@@ -29,13 +29,12 @@
 // What the TPU kernels do that is not carried over: K7 keeps everything in
 // SMEM and appends with a running counter; K6 holds the columns twice (flat
 // in SMEM for scalar reads, (8, 128) tiles in VMEM for 1024-lane vector
-// tests) and extracts hits with a max-reduction.  Here the rows stay in
-// device memory (17,408 rows, 278 KB, at the 64-env scene: L2-resident).
+// tests) and extracts hits with a max-reduction.
 //
 // What bounds both: the bytes.  The rows below nact are read once and the
 // kept pairs written once; the tests are a few float compares a candidate,
 // far below that at 67 TFLOP/s (chip_smoke.py counts both).  As built, the
-// longest walk's latency sets the time.
+// longest walk's latency and the launch set the time.
 //
 // K7, one block, one launch (count, scan and emit in the same block): a
 // warp a sorted row in turn.  The warp's 32 lanes test candidates
@@ -53,25 +52,45 @@
 // writes num and ovf.  At the 500-box frame its time is the ground rows'
 // walks (~500 candidates, 16 batches of two dependent loads each).
 //
-// K6, count, scan, emit, as K4's (csrc/sweep_tiled.cu).  The serial order
-// is a sum over cells, K6's the (source row, target chunk) pairs laid out
-// (s, t, k) over t >= s.  Kernel 1 counts each cell's hits with one thread
-// a cell; an exclusive prefix sum over the cells (torch.cumsum in the
-// wrapper, on the device) gives each its first slot; kernel 2 walks again
-// and writes below max_pairs.  Its blocks are a quarter of a source chunk
-// against one target chunk; the block stages the target chunk's rows in
-// shared memory and its threads walk them in step, so each candidate's row
-// is one broadcast read.  Its threads walk a visited target chunk in step,
-// every row of it, not only the x-open run (chip_smoke.py; PERF.md has the
-// times).
+// K6, one launch that counts, scans and writes (csrc/onepass.cuh's
+// single-pass scan), on a persistent grid of resident blocks that take
+// tickets in turn.  The serial order is a sum over cells, the (source row
+// k, target chunk t) pairs in (s, t, k) order.  The first nb tickets are
+// chunk tiles: tile s computes chunk_hix[s] (NaN if any hix is, as the
+// reference's max) and the last target chunk its chunk loop reaches, and
+// publishes that.  The later tickets wait for all of them and number only
+// the reached tiles, an eighth of a source chunk (128 rows) with an
+// active row against one reached target chunk, in (s, t, q) order; the
+// ticket past the last is the end tile, which looks back over them all
+// and writes num, ovf and the EMPTY tail.  A cell the chunk loop never
+// reaches costs no tile and no scan entry.  A tile brings target chunk
+// t's rows, dyn and ids (24 KB) into shared memory with three bulk copies
+// (TMA) on one mbarrier while its lanes load their source rows.  Its 16
+// warps take 8 source rows each, interleaved (row w + 16 r: the grounds of
+// one x-cell sort next to each other and would otherwise all fall to one
+// warp), a row at a time, 32 candidates j = lo+32b+lane a batch (lo =
+// max(t's first row, k + 1)), two batches loaded before either is tested:
+// the hit mask is a __ballot_sync, lane b keeps batch b's mask in a
+// register (a cell has at most 32 batches) and lane r the row's count.
+// The whole cell is tested, on any rows; the walk stops after the step
+// holding the first candidate that is not x-open only where the launch
+// has shown, on the staged rows, that t's rows below nact have
+// nondecreasing lox and no NaN (then no hit lies past that candidate: the
+// short walk, taken on every main-path frame).  A block scan of the
+// counts in row order gives each row its first slot in the tile; after
+// the look-back, a hit's slot is the tile's first slot, its row's offset
+// and the row's hits at a larger j (the batches above: a suffix sum of the
+// masks' __popc; in its batch: __popc of the mask above its lane), so the
+// emissions come in (s, t, k, j descending) order with no second walk,
+// and slots at or past max_pairs are not written.
 
 #include <cuda_runtime.h>
 
+#include "onepass.cuh"
+
 namespace {
 
-constexpr int kChunk = 1024;    // K6's chunk: the reference's 8 x 128 lanes
-constexpr int kThreads = 256;   // K6: a quarter chunk a block
-constexpr int kQuarters = kChunk / kThreads;
+constexpr int kChunk = 1024;  // K6's chunk: the reference's 8 x 128 lanes
 
 // Candidate b (with dyn db) hits source a (with dyn da): b starts before a
 // ends in x, the y-intervals overlap, one of the two is dynamic.
@@ -207,137 +226,327 @@ __global__ void __launch_bounds__(kWarpThreads)
   }
 }
 
-// ---- K6: a block a (quarter source chunk, target chunk) ------------------
+// ---- K6: one pass over (source rows, reached target chunk) tiles --------
+
+constexpr int kTileRows = 128;  // K6's tile: an eighth of a source chunk
+constexpr int kTilesPerChunk = kChunk / kTileRows;
+constexpr int kCellThreads = 512;  // 16 warps
+constexpr int kCellWarps = kCellThreads / 32;
+constexpr int kWarpRows = kTileRows / kCellWarps;  // 16 source rows a warp
 
 struct Chunked {
-  const float4* aabb;      // (n) [lox, loy, hix, hiy] sorted
-  const int* order;        // (n) body id of sorted row
-  const int* dyn;          // (n) sorted
+  const float4* aabb;  // (n) [lox, loy, hix, hiy] sorted
+  const int* order;    // (n) body id of sorted row
+  const int* dyn;      // (n) sorted
   const int* nact;
-  const float* chunk_hix;  // (nb) largest hix of each chunk
   int nb;
 };
 
-// The cells of source chunks below s: t runs over [s', nb) for each s' < s.
-__device__ __forceinline__ long long cell_base(int s, int t, int nb) {
-  const long long tri = (long long)s * nb - (long long)s * (s - 1) / 2;
-  return (tri + (t - s)) * kChunk;
-}
-
-// Whether the reference's chunk loop of source chunk s reaches target
-// chunk t: every chunk u in [s, t] has its first row below na and starting
-// at or before chunk_hix[s].
-__device__ __forceinline__ bool visited(const Chunked& w, int s, int t,
-                                        int na) {
-  if ((long long)s * kChunk >= na) return false;  // s is no source chunk
-  const float smax = w.chunk_hix[s];
-  for (int u = s; u <= t; ++u)
-    if (!((long long)u * kChunk < na && w.aabb[u * kChunk].x <= smax))
-      return false;
-  return true;
-}
-
-// One block's view of its cell group: source row k (this thread's), target
-// chunk t, and the candidate rows [lo, hi) the block walks.
-struct Cell {
-  int s, t, k, lo, hi;
-  long long id;  // the cell's index in (s, t, k) order
+// Each source chunk's reach, the last target chunk t its chunk loop
+// reaches (s - 1 for none): written once a call by the chunk tile s (ticket
+// s), read by every later tile.
+struct Reach {
+  unsigned* flag;  // (nb) the epoch of the call that wrote it
+  int* last;       // (nb)
 };
 
-__device__ __forceinline__ Cell cell_of(const Chunked& w, int na) {
-  const int s = blockIdx.y;
-  const int t = blockIdx.x / kQuarters;
-  const int first = s * kChunk + (blockIdx.x % kQuarters) * kThreads;
-  Cell c;
-  c.s = s;
-  c.t = t;
-  c.k = first + threadIdx.x;
-  // below t's chunk or k + 1 nothing is a candidate of the block's rows
-  c.lo = max(t * kChunk, first + 1);
-  c.hi = min((t + 1) * kChunk, na);
-  c.id = cell_base(s, t, w.nb) + (c.k - s * kChunk);
-  return c;
+// The largest hix of chunk s over its 1024 rows (inactive ones included),
+// NaN if any is NaN: the reference's max.  Every thread; a barrier.
+__device__ __forceinline__ float chunk_max(const Chunked& w, int s,
+                                           float* s_red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float m = -__int_as_float(0x7f800000);  // -inf
+  bool nan = false;
+  for (int r = threadIdx.x; r < kChunk; r += kCellThreads) {
+    const float z = w.aabb[s * kChunk + r].z;
+    nan = nan || isnan(z);
+    m = fmaxf(m, z);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(kAll, m, o));
+  if (lane == 0) s_red[warp] = m;
+  nan = __syncthreads_or(nan);
+  for (int i = 0; i < kCellWarps; ++i) m = fmaxf(m, s_red[i]);
+  return nan ? __int_as_float(0x7fffffff) : m;
 }
 
-// Stages target chunk t's rows (and, with ids, their body ids) in shared
-// memory.
-__device__ __forceinline__ void stage(const Chunked& w, int t, float4* box,
-                                      int* dyn, int* ids) {
-  for (int r = threadIdx.x; r < kChunk; r += kThreads) {
-    box[r] = w.aabb[t * kChunk + r];
-    dyn[r] = w.dyn[t * kChunk + r];
-    if (ids) ids[r] = w.order[t * kChunk + r];
-  }
+// The reference's chunk loop of source chunk s: target chunks t = s, s+1,
+// ... while t's first row is below na and starts at or before
+// chunk_hix[s].  Returns the last t it reaches (s - 1 for none).  Every
+// thread; barriers.
+__device__ __forceinline__ int chunk_reach(const Chunked& w, int s, int na,
+                                           float* s_red, int* s_stop) {
+  if (s * kChunk >= na) return s - 1;  // s is no source chunk
+  const float smax = chunk_max(w, s, s_red);
+  if (threadIdx.x == 0) *s_stop = w.nb;
   __syncthreads();
+  for (int u = s + threadIdx.x; u < w.nb; u += kCellThreads)
+    if (!(u * kChunk < na && w.aabb[u * kChunk].x <= smax))
+      atomicMin(s_stop, u);
+  __syncthreads();
+  return *s_stop - 1;
 }
 
-// Row k's guard for chunk t: active, and open at t's first lox.
-__device__ __forceinline__ bool guard(const Chunked& w, const Cell& c,
-                                      float4 a, int na) {
-  return c.k < na && w.aabb[c.t * kChunk].x <= a.z;
-}
-
-__global__ void __launch_bounds__(kThreads)
-    chunked_count(Chunked w, int* __restrict__ counts) {
-  if (blockIdx.x / kQuarters < blockIdx.y) return;  // t < s: no cells
-  const int na = active_rows(w.nact, w.nb * kChunk);
-  const Cell c = cell_of(w, na);
-  if (!visited(w, c.s, c.t, na)) {
-    counts[c.id] = 0;
-    return;
+// The tile of compact index j, among the reached tiles in (s, t, q) order:
+// source chunk s, target chunk t in [s, its reach], part q of s's
+// 128-row parts with an active row.  One warp, every lane: waits for every
+// chunk's reach; returns the number of reached tiles (the end tile's
+// index) and, where j is below it, (s, t, q).
+__device__ __forceinline__ int locate(const Chunked& w, Reach rc,
+                                      unsigned epoch, int na, int j, int& s,
+                                      int& t, int& q) {
+  const int lane = threadIdx.x & 31;
+  int carry = 0;
+  for (int base = 0; base < w.nb; base += 32) {
+    const int c = base + lane;
+    int v = 0, nq = 0, last = c - 1;
+    if (c < w.nb) {
+      for (unsigned tries = 0;
+           phyx::onepass::load_acquire(&rc.flag[c]) != epoch;)
+        if (++tries == phyx::onepass::kMaxTries) __trap();
+      last = phyx::onepass::load_relaxed(&rc.last[c]);
+      nq = min(max((na - c * kChunk + kTileRows - 1) / kTileRows, 0),
+               kTilesPerChunk);
+      v = last >= c ? (last - c + 1) * nq : 0;
+    }
+    int x = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kAll, x, o);
+      if (lane >= o) x += y;
+    }
+    const unsigned here =
+        __ballot_sync(kAll, v > 0 && carry + x - v <= j && j < carry + x);
+    if (here) {
+      const int src = __ffs(here) - 1;
+      const int idx = j - carry - __shfl_sync(kAll, x - v, src);
+      const int k = __shfl_sync(kAll, nq, src);
+      s = base + src;
+      t = s + idx / k;
+      q = idx % k;
+    }
+    carry += __shfl_sync(kAll, x, 31);
   }
-  __shared__ float4 box[kChunk];
-  __shared__ int dyn[kChunk];
-  stage(w, c.t, box, dyn, nullptr);
-  const float4 a = w.aabb[c.k];
-  const int da = w.dyn[c.k];
-  int n = 0;
-  if (guard(w, c, a, na))
-    for (int j = c.lo; j < c.hi; ++j)
-      n += j > c.k && hits(a, da, box[j - c.t * kChunk],
-                           dyn[j - c.t * kChunk]);
-  counts[c.id] = n;
+  return carry;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    chunked_emit(Chunked w, const int* __restrict__ counts,
-                 const long long* __restrict__ ends, int max_pairs,
-                 int* __restrict__ pi, int* __restrict__ pj) {
-  if (blockIdx.x / kQuarters < blockIdx.y) return;
+// Row r of warp w of the tile: rows interleaved over the warps, so that
+// neighbouring long rows (the grounds of one x-cell sort together) walk on
+// different warps.
+__device__ __forceinline__ int tile_row(int warp, int r) {
+  return warp + kCellWarps * r;
+}
+
+// One launch of a persistent grid: each block takes tickets in turn.
+// Tickets 0 .. nb-1 are chunk tiles (the reach of source chunk s); the
+// next ones, less nb, number the reached tiles in (s, t, q) order, then
+// the end tile, which writes the counters.  A tile's 16 warps take 16
+// source rows k each, one at a time; lane b keeps the hit mask of the
+// row's batch b (32 candidates), and a block scan of the rows' counts in
+// row order gives each row's first slot in the tile, the look-back the
+// tile's; a hit's slot is its row's first slot plus the row's hits at a
+// larger j.
+__global__ void __launch_bounds__(kCellThreads)
+    chunked_onepass(Chunked w, phyx::onepass::Scan sc, Reach rc,
+                    int max_pairs, int empty, int* __restrict__ pi,
+                    int* __restrict__ pj, int* __restrict__ counters) {
+  namespace op = phyx::onepass;
+  __shared__ alignas(16) float4 box[kChunk];
+  __shared__ alignas(16) int sdyn[kChunk];
+  __shared__ alignas(16) int sids[kChunk];
+  __shared__ alignas(8) uint64_t bar;
+  __shared__ int s_row[kTileRows];  // a row's count, then its first place
+  __shared__ float s_red[kCellWarps];
+  __shared__ int s_cnt[kTileRows / 32];
+  __shared__ int s_tile[4];  // s, t, q, the reached tiles
+  __shared__ long long s_first;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int na = active_rows(w.nact, w.nb * kChunk);
-  const Cell c = cell_of(w, na);
-  const int cnt = counts[c.id];
-  // exclusive prefix: the emissions of the cells before this one
-  long long slot = ends[c.id] - cnt;
-  const bool writes = cnt > 0 && slot < max_pairs;
-  if (!__syncthreads_or(writes)) return;  // uniform over the block
-  __shared__ float4 box[kChunk];
-  __shared__ int dyn[kChunk];
-  __shared__ int ids[kChunk];
-  stage(w, c.t, box, dyn, ids);
-  if (!writes) return;
-  const float4 a = w.aabb[c.k];
-  const int da = w.dyn[c.k];
-  const int oi = w.order[c.k];
-  // the reference extracts the largest hit lane first: j descending
-  for (int j = c.hi - 1; j >= c.lo; --j) {
-    const int r = j - c.t * kChunk;
-    if (j > c.k && hits(a, da, box[r], dyn[r])) {
-      pi[slot] = min(oi, ids[r]);
-      pj[slot] = max(oi, ids[r]);
-      if (++slot >= max_pairs) break;
+  if (tid == 0) op::mbar_init(&bar);
+  for (unsigned phase = 0;;) {
+  const op::Tile ticket = op::take(sc);  // barriers: bar is initialized
+  if (ticket.index < w.nb) {  // a chunk tile
+    const int last = chunk_reach(w, ticket.index, na, s_red, &s_tile[0]);
+    if (tid == 0) {
+      rc.last[ticket.index] = last;
+      op::store_release(&rc.flag[ticket.index], ticket.epoch);
+    }
+    continue;
+  }
+  const op::Tile tile{ticket.index - w.nb, ticket.epoch};
+  if (warp == 0) {
+    int s = 0, t = 0, q = 0;
+    const int n = locate(w, rc, tile.epoch, na, tile.index, s, t, q);
+    if (lane == 0) {
+      s_tile[0] = s;
+      s_tile[1] = t;
+      s_tile[2] = q;
+      s_tile[3] = n;
     }
   }
-}
+  __syncthreads();
+  const int reached = s_tile[3];
+  if (tile.index > reached) return;  // past the end tile: none left
+  if (tile.index == reached) {       // the end tile: num, ovf, EMPTY tail
+    if (warp == 0) {
+      const long long total = op::look_back(sc, tile, lane);
+      if (lane == 0) s_first = total;
+    }
+    __syncthreads();
+    const long long total = s_first;
+    const int num = static_cast<int>(total < max_pairs ? total : max_pairs);
+    if (tid == 0) {
+      counters[0] = num;
+      counters[1] = static_cast<int>(total - num);
+    }
+    for (int p = num + tid; p < max_pairs; p += kCellThreads) {
+      pi[p] = empty;
+      pj[p] = empty;
+    }
+    return;
+  }
+  const int s = s_tile[0], t = s_tile[1];
+  const int tbase = t * kChunk;
+  const int first_row = s * kChunk + s_tile[2] * kTileRows;
 
-Chunked chunked(const void* aabb, const void* order, const void* dyn,
-                const void* nact, const void* chunk_hix, int nb) {
-  return {static_cast<const float4*>(aabb), static_cast<const int*>(order),
-          static_cast<const int*>(dyn), static_cast<const int*>(nact),
-          static_cast<const float*>(chunk_hix), nb};
-}
+  // target chunk t's columns into shared memory: three bulk copies
+  if (tid == 0) {
+    op::fence_proxy_async();
+    op::mbar_expect(&bar, kChunk * 24);
+    op::bulk_load(box, w.aabb + tbase, kChunk * 16, &bar);
+    op::bulk_load(sdyn, w.dyn + tbase, kChunk * 4, &bar);
+    op::bulk_load(sids, w.order + tbase, kChunk * 4, &bar);
+  }
+  unsigned m[kWarpRows];  // lane b: the row's batch b hit mask
+#pragma unroll
+  for (int r = 0; r < kWarpRows; ++r) m[r] = 0u;
+  float4 my_a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  int my_d = 0, my_o = 0;  // lane r: the warp's row r's AABB, dyn, id
+  if (lane < kWarpRows) {
+    const int k = first_row + tile_row(warp, lane);
+    my_a = w.aabb[k];
+    my_d = w.dyn[k];
+    my_o = w.order[k];
+  }
+  op::mbar_wait(&bar, phase);
+  phase ^= 1u;
+  // the proof that allows the short walk: t's active rows have
+  // nondecreasing lox and none is NaN, so no hit of a row lies past its
+  // first candidate that is not x-open
+  const int rows = min(kChunk, na - tbase);
+  bool ok = true;
+  for (int r = tid; r < rows; r += kCellThreads) {
+    const float x = box[r].x;
+    ok = ok && !isnan(x) && (r + 1 >= rows || x <= box[r + 1].x);
+  }
+  const bool sorted = __syncthreads_and(ok);
+  const float first_lox = box[0].x;
+  const int hi = min(tbase + kChunk, na) - tbase;  // chunk-relative
+  int cnt = 0;  // lane r: the warp's row r's hits in this cell
+#pragma unroll
+  for (int r = 0; r < kWarpRows; ++r) {
+    const int k = first_row + tile_row(warp, r);
+    const float4 a = make_float4(
+        __shfl_sync(kAll, my_a.x, r), __shfl_sync(kAll, my_a.y, r),
+        __shfl_sync(kAll, my_a.z, r), __shfl_sync(kAll, my_a.w, r));
+    const int da = __shfl_sync(kAll, my_d, r);
+    if (!(k < na && first_lox <= a.z)) continue;  // the row's guard
+    int c = 0;
+    // two batches a step, both loaded before either is tested; the short
+    // walk ends after the step holding a closed candidate
+    for (int j0 = max(tbase, k + 1) - tbase, b = 0; j0 < hi;
+         j0 += 64, b += 2) {
+      const int j = j0 + lane;
+      const bool in0 = j < hi, in1 = j + 32 < hi;
+      float4 b0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), b1 = b0;
+      int d0 = 0, d1 = 0;
+      if (in0) {
+        b0 = box[j];
+        d0 = sdyn[j];
+      }
+      if (in1) {
+        b1 = box[j + 32];
+        d1 = sdyn[j + 32];
+      }
+      const unsigned h0 = __ballot_sync(kAll, in0 && hits(a, da, b0, d0));
+      const unsigned h1 = __ballot_sync(kAll, in1 && hits(a, da, b1, d1));
+      if (lane == b) m[r] = h0;
+      if (lane == b + 1) m[r] = h1;
+      c += __popc(h0) + __popc(h1);
+      if (sorted && __any_sync(kAll, (in0 && !(b0.x <= a.z)) ||
+                                         (in1 && !(b1.x <= a.z))))
+        break;
+    }
+    if (lane == r) cnt = c;
+  }
+  if (lane < kWarpRows) s_row[tile_row(warp, lane)] = cnt;
+  __syncthreads();
 
-dim3 chunked_grid(int nb) { return dim3(nb * kQuarters, nb); }
+  // each row's first place in the tile: an exclusive scan in row order
+  int v = 0, x = 0, agg = 0;
+  if (warp < kTileRows / 32) {
+    v = s_row[tid];
+    x = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kAll, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane == 31) s_cnt[warp] = x;
+  }
+  __syncthreads();
+  for (int i = 0; i < kTileRows / 32; ++i) {
+    x += i < warp ? s_cnt[i] : 0;
+    agg += s_cnt[i];
+  }
+  if (warp < kTileRows / 32) s_row[tid] = x - v;
+
+  if (tid == 0) op::publish(sc, tile, agg, tile.index == 0);
+  if (agg == 0) continue;  // block-uniform: nothing to write
+  if (warp == 0) {
+    const long long excl = tile.index ? op::look_back(sc, tile, lane) : 0;
+    if (lane == 0) {
+      if (tile.index) op::publish(sc, tile, excl + agg, true);
+      s_first = excl;
+    }
+  }
+  __syncthreads();
+  const long long first = s_first;
+
+  const unsigned above_lane = ~((2u << lane) - 1u);
+#pragma unroll
+  for (int r = 0; r < kWarpRows; ++r) {
+    const int i = tile_row(warp, r);
+    const long long slot = first + s_row[i];
+    const int c = i + 1 < kTileRows ? s_row[i + 1] - s_row[i] : agg - s_row[i];
+    if (c == 0 || slot >= max_pairs) continue;
+    const int oi = __shfl_sync(kAll, my_o, r);
+    // lane's candidate in batch 0, chunk-relative
+    const int jb = max(tbase, first_row + i + 1) - tbase + lane;
+    // the row's hits in the batches above each lane's batch
+    const int pc = __popc(m[r]);
+    int suf = pc;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_down_sync(kAll, suf, o);
+      if (lane + o < 32) suf += y;
+    }
+    const int above = suf - pc;
+    for (unsigned todo = __ballot_sync(kAll, m[r] != 0u); todo;
+         todo &= todo - 1u) {
+      const int b = __ffs(todo) - 1;
+      const unsigned h = __shfl_sync(kAll, m[r], b);
+      const long long at =
+          slot + __shfl_sync(kAll, above, b) + __popc(h & above_lane);
+      if ((h >> lane & 1u) && at < max_pairs) {
+        const int oj = sids[jb + 32 * b];
+        pi[at] = min(oi, oj);
+        pj[at] = max(oi, oj);
+      }
+    }
+  }
+  }
+}
 
 }  // namespace
 
@@ -370,31 +579,43 @@ extern "C" int phyx_sweep_warp(const void* aabb, const void* order,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K6's two launches: counts is int32 a cell, ends its inclusive prefix sum
-// in int64.
-// K6: aabb, order and dyn sorted, n = 1024 nb; chunk_hix (nb) f32; one cell
-// a (source row, target chunk t >= its chunk), counts (nb (nb + 1) / 2 *
-// 1024) in (s, t, k) order.
-extern "C" int phyx_sweep_chunked_count(const void* aabb, const void* order,
-                                        const void* dyn, const void* nact,
-                                        const void* chunk_hix, void* counts,
-                                        int nb, void* stream) {
-  chunked_count<<<chunked_grid(nb), kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      chunked(aabb, order, dyn, nact, chunk_hix, nb),
-      static_cast<int*>(counts));
-  return static_cast<int>(cudaGetLastError());
+// K6's reached tiles at nb chunks, at most (the scratch's ntiles).
+extern "C" int phyx_sweep_chunked_tiles(int nb) {
+  return nb * (nb + 1) / 2 * kTilesPerChunk;
 }
 
-extern "C" int phyx_sweep_chunked_emit(const void* aabb, const void* order,
-                                       const void* dyn, const void* nact,
-                                       const void* counts, const void* ends,
-                                       void* pi, void* pj, int nb,
-                                       int max_pairs, void* stream) {
-  chunked_emit<<<chunked_grid(nb), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      chunked(aabb, order, dyn, nact, nullptr, nb),
-      static_cast<const int*>(counts), static_cast<const long long*>(ends),
-      max_pairs, static_cast<int*>(pi), static_cast<int*>(pj));
+// K6: aabb, order and dyn sorted, each 16-byte aligned, n = 1024 nb; one
+// launch writes the whole buffer (EMPTY from num on) and counters (2)
+// int32 [num, ovf].  The scratch, zeroed once and kept for this stream and
+// shape: ticket (1) u64, flag (ntiles) u32, agg and incl (ntiles) i64,
+// reach_flag and reach (nb) i32; ntiles = phyx_sweep_chunked_tiles(nb);
+// epoch: the wrapper's number of this call on that scratch, 1 .. 2^30 - 1,
+// rising from call to call.
+extern "C" int phyx_sweep_chunked(const void* aabb, const void* order,
+                                  const void* dyn, const void* nact,
+                                  void* ticket, void* flag, void* agg,
+                                  void* incl, void* reach_flag, void* reach,
+                                  void* pi, void* pj, void* counters, int nb,
+                                  int max_pairs, int empty, int epoch,
+                                  void* stream) {
+  if (nb < 1 || epoch < 1 || epoch >= 1 << 30)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ntiles = phyx_sweep_chunked_tiles(nb);
+  const Chunked w{static_cast<const float4*>(aabb),
+                  static_cast<const int*>(order), static_cast<const int*>(dyn),
+                  static_cast<const int*>(nact), nb};
+  const phyx::onepass::Scan sc{static_cast<unsigned long long*>(ticket),
+                               static_cast<unsigned*>(flag),
+                               static_cast<long long*>(agg),
+                               static_cast<long long*>(incl), ntiles,
+                               static_cast<unsigned>(epoch)};
+  const Reach rc{static_cast<unsigned*>(reach_flag), static_cast<int*>(reach)};
+  const int grid = phyx::onepass::resident_grid(chunked_onepass, kCellThreads,
+                                                nb + ntiles + 1);
+  if (grid < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  chunked_onepass<<<grid, kCellThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      w, sc, rc, max_pairs, empty, static_cast<int*>(pi),
+      static_cast<int*>(pj), static_cast<int*>(counters));
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,20 +4,23 @@ kernels of ``broadphase.broadphase_sap_kernel``.  K4, the slab-windowed
 sweep of the same reference module, is in ``kernels/sweep_tiled.py``.
 
 The kernels are in ``csrc/sweep_emit.cu`` (built with ``nvcc`` at first
-use, ``kernels/nvcc.py``, and called through ``ctypes``).  K6 counts the
-hits of its cells, takes their prefix sum on the device and writes them in
-order (two launches and a ``torch.cumsum``); K7 does all three in one
-launch of one block, a warp a sorted row.
+use, ``kernels/nvcc.py``, and called through ``ctypes``).  Each counts,
+scans and writes in one launch: K6 over tiles of its cells with a
+single-pass scan across blocks (``csrc/onepass.cuh``), K7 in one block, a
+warp a sorted row.
 
 * ``sweep_emit_v2`` (K6) and ``sweep_emit`` (K7) are the wrappers: on CUDA
   tensors they launch the kernel (or raise); on CPU tensors they run the
-  plain version.  ``count_pass`` and ``emit_pass`` are K6's two launches,
-  ``warp_pass`` K7's one, on buffers the caller gives.
+  plain version.  ``chunked_pass`` and ``warp_pass`` are their launches on
+  buffers the caller gives.
 * ``sweep_emit_v2_plain`` and ``sweep_emit_plain`` compute the same buffer
   and counters as vectorized torch operations; ``sweep_emit_warp_plain`` is
   K7's schedule (32-lane batches with their x-open and hit masks, each
   hit's slot from its row's first slot and its rank in the batch) in torch,
-  equal to ``sweep_emit_plain``.
+  equal to ``sweep_emit_plain``; ``sweep_emit_v2_onepass_plain`` is K6's
+  (tiles, 32-candidate batches, the sorted proof and its short walk, slots
+  from an exclusive scan over tiles and j-descending ranks), equal to
+  ``sweep_emit_v2_plain``.  The schedules' versions run on no card path.
 
 What they compute: bodies sorted by AABB min x, the active ones (``nact``)
 first.  Source row k tests the rows j > k below ``nact`` and emits the body
@@ -53,6 +56,7 @@ from phyx_tpu_torch.types import EMPTY
 
 SOURCE = nvcc.CSRC / "sweep_emit.cu"
 CHUNK = 1024   # K6's chunk rows
+TILE_ROWS = 128  # K6's tile: source rows against one target chunk
 LANES = 32     # K7: the candidates a warp tests at once
 # K7's per-row counts in shared memory up to 200 KB (n <= 51,200)
 WARP_COUNTS_SMEM = 200 * 1_024
@@ -65,10 +69,10 @@ def build() -> tuple:
     lib, report = nvcc.load(SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.phyx_sweep_warp.argtypes = [ptr] * 9 + [i32] * 4 + [ptr]
-    lib.phyx_sweep_chunked_count.argtypes = [ptr] * 6 + [i32, ptr]
-    lib.phyx_sweep_chunked_emit.argtypes = [ptr] * 8 + [i32, i32, ptr]
-    for fn in (lib.phyx_sweep_warp, lib.phyx_sweep_chunked_count,
-               lib.phyx_sweep_chunked_emit):
+    lib.phyx_sweep_chunked.argtypes = [ptr] * 13 + [i32] * 4 + [ptr]
+    lib.phyx_sweep_chunked_tiles.argtypes = [i32]
+    for fn in (lib.phyx_sweep_warp, lib.phyx_sweep_chunked,
+               lib.phyx_sweep_chunked_tiles):
         fn.restype = ctypes.c_int
     return lib, report
 
@@ -92,6 +96,29 @@ def check_inputs(aabb_flat, order, dyn, nact, max_pairs) -> int:
     return n
 
 
+def _scan_scratch(kind: str, device, ntiles: int, extra: tuple) -> tuple:
+    """The single-pass scan's scratch for K4 or K6 (``csrc/onepass.cuh``)
+    on ``device``'s current stream, and this call's epoch: ticket (1,)
+    int64, flag (ntiles,) int32, agg and incl (ntiles,) int64, then
+    ``extra`` as (dtype, size) pairs.  Zeroed once and kept; the kernel
+    tags what it publishes with the epoch, which rises by one a call, so no
+    call needs it cleared (a fresh scratch after 2^30 - 1 calls)."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (kind, device.index, stream, ntiles, extra)
+    entry = _SCRATCH.get(key)
+    if entry is None or entry[1] >= (1 << 30) - 1:
+        entry = _SCRATCH[key] = [tuple(
+            torch.zeros((size,), dtype=dtype, device=device)
+            for dtype, size in ((torch.int64, 1), (torch.int32, ntiles),
+                                (torch.int64, ntiles), (torch.int64, ntiles))
+            + extra), 0]
+    entry[1] += 1
+    return entry[0], entry[1]
+
+
+_SCRATCH: dict = {}
+
+
 def _launch(fn, *args) -> None:
     """Calls the C entry ``fn`` with tensors as device pointers (None as a
     null pointer), on the current stream; raises if the launch was
@@ -110,47 +137,29 @@ def _empty_buffer(max_pairs: int, device):
                             device=device) for _ in range(2))
 
 
-def _counters(total: torch.Tensor, max_pairs: int):
-    num = torch.clamp(total, max=max_pairs)
-    return num.to(torch.int32), (total - num).to(torch.int32)
-
-
 def _require_cuda(device) -> None:
     if device.type != "cuda":
         raise NotImplementedError(f"no sweep kernel for {device.type}")
 
 
-def cells(n: int) -> int:
-    """Cells K6's count pass fills: its (source row, target chunk) cells
-    with t >= s, laid out (s, t, k)."""
+def chunked_pass(aabb_flat, order, dyn, nact, pi, pj, counters,
+                 max_pairs: int) -> None:
+    """K6's one launch, on the current stream, into the buffers given:
+    ``pi``, ``pj`` (max_pairs,) int32 whole (EMPTY from num on) and
+    ``counters`` (2,) int32 [num, ovf].  Raises if the launch was
+    refused."""
+    n = order.shape[0]
+    for name, t in (("order", order), ("dyn", dyn)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (K6 copies "
+                             "chunks of it in bulk)")
     nb = n // CHUNK
-    return nb * (nb + 1) // 2 * CHUNK
-
-
-def chunk_hix(aabb_flat: torch.Tensor) -> torch.Tensor:
-    """K6's walk bound: the largest hix of each 1024-row chunk, (nb,) f32."""
-    return aabb_flat.view(-1, CHUNK, 4)[:, :, 2].amax(1)
-
-
-def count_pass(aabb_flat, order, dyn, nact, counts, hix) -> None:
-    """K6's first launch, on the current stream: each cell's hits into
-    ``counts`` ((cells(N),) int32), with the chunk bounds ``hix``.  Raises
-    if the launch was refused.  (The wrapper's part; called alone only to
-    time it.)"""
     lib, _ = build()
-    _launch(lib.phyx_sweep_chunked_count, aabb_flat, order, dyn, nact, hix,
-            counts, order.shape[0] // CHUNK)
-
-
-def emit_pass(aabb_flat, order, dyn, nact, counts, ends, pi, pj,
-              max_pairs: int) -> None:
-    """K6's second launch, on the current stream: each cell walks again
-    and writes its hits from the slot ``ends - counts`` (``ends`` the
-    (cells,) int64 inclusive prefix sum of ``counts``) while below
-    ``max_pairs``.  Raises if the launch was refused."""
-    lib, _ = build()
-    _launch(lib.phyx_sweep_chunked_emit, aabb_flat, order, dyn, nact, counts,
-            ends, pi, pj, order.shape[0] // CHUNK, max_pairs)
+    scratch, epoch = _scan_scratch(
+        "K6", aabb_flat.device, lib.phyx_sweep_chunked_tiles(nb),
+        ((torch.int32, nb), (torch.int32, nb)))
+    _launch(lib.phyx_sweep_chunked, aabb_flat, order, dyn, nact, *scratch,
+            pi, pj, counters, nb, max_pairs, EMPTY, epoch)
 
 
 def warp_pass(aabb_flat, order, dyn, nact, pi, pj, num, ovf,
@@ -212,14 +221,12 @@ def sweep_emit_v2(aabb_flat: torch.Tensor,   # (4 N,) f32 sorted
     if dev.type == "cpu":
         return sweep_emit_v2_plain(aabb_flat, order, dyn, nact, max_pairs)
     _require_cuda(dev)
-    # two launches and the prefix sum between them, with no host sync
-    counts = torch.empty((cells(n),), dtype=torch.int32, device=dev)
-    pi, pj = _empty_buffer(max_pairs, dev)
-    count_pass(aabb_flat, order, dyn, nact, counts, chunk_hix(aabb_flat))
-    ends = torch.cumsum(counts, 0, dtype=torch.int64)
-    emit_pass(aabb_flat, order, dyn, nact, counts, ends, pi, pj, max_pairs)
+    i32 = dict(dtype=torch.int32, device=dev)
+    pi, pj = (torch.empty((max_pairs,), **i32) for _ in range(2))
+    counters = torch.empty((2,), **i32)
+    chunked_pass(aabb_flat, order, dyn, nact, pi, pj, counters, max_pairs)
     sweep_emit_v2.launches += 1
-    return (pi, pj) + _counters(ends[-1], max_pairs)
+    return pi, pj, counters[0], counters[1]
 
 
 sweep_emit_v2.launches = 0
@@ -366,3 +373,131 @@ def sweep_emit_v2_plain(aabb_flat, order, dyn, nact, max_pairs: int):
             dst.append(j[CHUNK - 1 - jj])
             t += 1
     return _emitted(order, torch.cat(src), torch.cat(dst), max_pairs)
+
+
+def sorted_chunks(aabb_flat, nact) -> list:
+    """K6's proof, chunk by chunk: whether chunk t's rows below ``nact``
+    have nondecreasing lox and none is NaN, so that no hit of a row lies
+    past its first candidate in t that is not x-open."""
+    n = aabb_flat.numel() // 4
+    na = min(max(int(nact), 0), n)
+    xlo = aabb_flat.view(n, 4)[:, 0]
+    out = []
+    for t in range(n // CHUNK):
+        x = xlo[t * CHUNK:min((t + 1) * CHUNK, na)]
+        out.append(bool(not torch.isnan(x).any()
+                        and (x[:-1] <= x[1:]).all()))
+    return out
+
+
+def sweep_emit_v2_onepass_plain(aabb_flat, order, dyn, nact,
+                                max_pairs: int, lanes: int = LANES):
+    """K6's one-pass schedule in torch (``csrc/sweep_emit.cu``): tiles of
+    ``TILE_ROWS`` source rows against one target chunk, numbered in
+    (s, t, q) order over the reached ones only: where the reference's
+    chunk loop of s reaches t (every chunk u in [s, t] starts below nact
+    and at or before the NaN-propagating max of chunk s's hix) and the
+    part q of s has an active row.  Each cell (k, t) of a tile, where k <
+    nact and t's first lox <= hix[k], tests its
+    candidates j = lo + lanes b + lane a batch (lo = max(t's first row,
+    k + 1), j below nact and t's end), two batches a step; where
+    ``sorted_chunks`` proves t, the cell stops after the step holding its
+    first candidate that is not x-open.  A cell's first slot is its tile's (an exclusive scan over the
+    tiles' counts) plus the exclusive scan of the rows' counts inside the
+    tile; a hit's slot adds the cell's hits at a larger j.  Slots below
+    ``max_pairs`` get the pair, the rest of the buffer EMPTY.  Returns
+    (pi, pj, num, ovf, the proof a chunk).  Equal to
+    ``sweep_emit_v2_plain``; it reads ``nact`` back to the host: for tests
+    and comparison with the kernel."""
+    n = order.shape[0]
+    device = order.device
+    na = min(max(int(nact), 0), n)
+    nb, parts = n // CHUNK, CHUNK // TILE_ROWS
+    box = aabb_flat.view(n, 4)
+    xlo, xhi = box[:, 0], box[:, 2]
+    smax = xhi.view(nb, CHUNK).amax(1).tolist()    # NaN if any is
+    first_x = xlo[::CHUNK].tolist()
+    proof = sorted_chunks(aabb_flat, nact)
+    lane = torch.arange(lanes, device=device)
+    # the cells of the reached tiles, in (s, t, q) order: tile, row, t
+    tile_of, rows_of, t_of = [], [], []
+    ntiles = 0
+    for s in range(nb):
+        for t in range(s, nb):
+            if not (t * CHUNK < na and all(
+                    first_x[u] <= smax[s] for u in range(s, t + 1))):
+                break
+            for q in range(parts):
+                first = s * CHUNK + q * TILE_ROWS
+                if first < na:
+                    k = torch.arange(first, first + TILE_ROWS, device=device)
+                    k = k[(k < na) & (first_x[t] <= xhi[k])]
+                    tile_of.append(torch.full_like(k, ntiles))
+                    rows_of.append(k)
+                    t_of.append(torch.full_like(k, t))
+                    ntiles += 1
+    empty = torch.zeros((0,), dtype=torch.int64, device=device)
+    tile = torch.cat(tile_of) if tile_of else empty
+    k = torch.cat(rows_of) if rows_of else empty
+    t = torch.cat(t_of) if t_of else empty
+    lo = torch.maximum(t * CHUNK, k + 1)
+    hi = torch.clamp((t + 1) * CHUNK, max=na)
+    short = torch.tensor(proof, dtype=torch.bool, device=device)[t] \
+        if nb else empty.bool()
+    d = dyn.to(torch.int64)
+    cell = torch.arange(k.numel(), device=device)
+    live = lo < hi
+    closing = torch.zeros_like(live)   # a closed candidate in this step
+    found = []        # (cell, batch, lane) of each hit
+    for b in range(CHUNK // lanes):
+        c = cell[live]
+        if c.numel() == 0:
+            break
+        j = lo[c, None] + b * lanes + lane[None, :]
+        inside = j < hi[c, None]
+        jj = torch.where(inside, j, 0)
+        a = box[k[c]]
+        cand = box[jj]
+        is_open = inside & (cand[..., 0] <= a[:, None, 2])
+        hit = (is_open & (cand[..., 1] <= a[:, None, 3])
+               & (a[:, None, 1] <= cand[..., 3])
+               & (d[k[c]][:, None] + d[jj] > 0))
+        r, ln = torch.nonzero(hit, as_tuple=True)
+        found.append(torch.stack([c[r], torch.full_like(r, b), ln]))
+        closing[c] |= short[c] & (inside & ~is_open).any(1)
+        live[c] = (lo[c] + (b + 1) * lanes < hi[c]) & ~(
+            closing[c] & (b % 2 == 1))
+        if b % 2 == 1:
+            closing[c] = False
+    found = (torch.cat(found, 1) if found
+             else torch.zeros((3, 0), dtype=torch.int64, device=device))
+    hc, hb, hl = found
+    counts = torch.bincount(hc, minlength=k.numel())
+    total = int(counts.sum())
+    # tiles' first slots: an exclusive scan of the tiles' counts
+    agg = torch.zeros((ntiles,), dtype=torch.int64, device=device)
+    agg.index_add_(0, tile, counts)
+    tile_first = torch.cumsum(agg, 0) - agg
+    # rows' offsets in their tile: an exclusive scan in row order
+    ends = torch.cumsum(counts, 0)
+    row_off = ends - counts - (ends - counts)[
+        torch.searchsorted(tile, tile)]
+    cell_first = tile_first[tile] + row_off
+    # the cell's hits at a larger j: its rank in (cell, j descending) order
+    jdx = hb * lanes + hl
+    srt = torch.argsort(hc * CHUNK + (CHUNK - 1 - jdx))
+    rank = torch.empty_like(srt)
+    rank[srt] = torch.arange(srt.numel(), device=device)
+    slot = cell_first[hc] + rank - (ends - counts)[hc]
+    keep = slot < max_pairs
+    pi, pj = _empty_buffer(max_pairs, device)
+    oi = order[k[hc[keep]]]
+    oj = order[(lo[hc] + jdx)[keep]]
+    pi[slot[keep]] = torch.minimum(oi, oj)
+    pj[slot[keep]] = torch.maximum(oi, oj)
+    m = min(total, max_pairs)
+
+    def count(x):
+        return torch.full((), x, dtype=torch.int32, device=device)
+
+    return pi, pj, count(m), count(total - m), proof
