@@ -148,9 +148,29 @@ Phases; any failure raises and the script exits non-zero:
              against its plain version at the settled frame and at a
              buffer cut to half its pairs (``ovf`` counted), with its
              per-row counts in device memory (the placement past 51,200
-             rows), and timed; K2 as at the chain frame.  Then one call
-             each of K4, K6 and K7 at their settled frames in one
-             torch.profiler session: each launches one CUDA kernel.
+             rows), and timed; K2 as at the chain frame.
+11. colored — the colored solve (``solver_backend="xla"``, torch ops, no
+             kernel) with bench.py's build() policy otherwise: the 10k
+             pile (the 200-frame settle of phase 4) and the 1000-link
+             chain (the bench's 300), settled without host waits, slope
+             timing with no kernel of K1-K7 launched, bench.py's bars
+             (pile: penetration ratio <= 0.6, ovf 0; chain: residual <=
+             1e-2, read at bench row C's frame 600, run on to without
+             host waits); the stages by CUDA events with no sleep ahead (a
+             colored frame queues more kernels than the launch queue
+             holds) and the host's enqueue; at the settled frame the
+             colors on the card equal to the CPU's, ``check_coloring`` 0,
+             the final class's share, the colored solve within
+             ``COLORED_ATOL`` of the same solve on the CPU and, run twice,
+             equal to the bit, the whole step twice equal to the bit (the
+             pile frame also at 4 colors, a full final class); one
+             colored-fallback ``"pallas"`` frame card vs CPU.  Then one
+             call each of K4, K6 and K7 at their settled frames in one
+             torch.profiler session: each launches one CUDA kernel; the
+             same session counts and times the kernels of each colored
+             frame's three stages and of its solve's parts (coloring, warm
+             start, velocity passes, displacement passes): device busy
+             ms, idle share.
 
 Prints a JSON line per main-path phase (physics, rate, stage times), a
 JSON line of the kernels, the card's ``nvidia-smi`` name and power limit,
@@ -923,42 +943,61 @@ def _emit_device_ms(name: str, args, reps: int) -> dict:
 
 # kernels whose launches a call are counted, by name: (where, one call)
 _PROBES: dict = {}
+# stages of frames whose CUDA kernels the same session counts and times:
+# name -> (where, function)
+_FRAMES: dict = {}
 
 
 def _kernels_a_call() -> dict:
     """The names of the CUDA kernels one call of each probe in ``_PROBES``
-    launches, from torch.profiler's device events, all in one profiler
-    session (a second session in a process has returned no device events
-    on the card): each call is queued behind a short sleep kernel, which
-    marks where its kernels start.  Raises unless each call launches
-    exactly one kernel."""
+    launches, and the count and summed device time of the kernels one call
+    of each entry of ``_FRAMES`` launches, from torch.profiler's device
+    events, all in one profiler session (a second session in a process has
+    returned no device events on the card): each call is queued behind a
+    short sleep kernel, which marks where its kernels start.  Raises
+    unless each probe launches exactly one kernel and each frame entry at
+    least one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    for _, fn in _PROBES.values():
+    calls = {**_PROBES, **_FRAMES}
+    for _, fn in calls.values():
         fn()                  # warm-up: builds and caches stay outside
     _sync()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _, fn in _PROBES.values():
+        for _, fn in calls.values():
             torch.cuda._sleep(1000)
             fn()
         _sync()
     events = sorted((e for e in prof.events()
                      if e.device_type == torch.autograd.DeviceType.CUDA),
                     key=lambda e: e.time_range.start)
-    names, out = iter(_PROBES), {}
+    names, seen = iter(calls), {}
     for e in events:
         if "spin_kernel" in e.name or "sleep" in e.name.lower():
-            out[next(names)] = []
-        elif out:
-            out[list(out)[-1]].append(e.name)
+            seen[next(names)] = []
+        elif seen:
+            seen[list(seen)[-1]].append(e)
+    out = {}
     for name, (where, _) in _PROBES.items():
-        kernels = out.get(name)
-        if kernels is None or len(kernels) != 1:
+        kernels = [e.name for e in seen.get(name, [])]
+        if name not in seen or len(kernels) != 1:
             raise AssertionError(f"one {name} call at {where} launched "
                                  f"{kernels} (device events: "
                                  f"{[e.name for e in events]})")
         print(f"# kernels a call: one {name} call at {where} launches "
               f"{kernels}", flush=True)
+        out[name] = kernels
+    for name, (where, _) in _FRAMES.items():
+        kernels = seen.get(name)
+        if not kernels:
+            raise AssertionError(f"one call of {name} at {where} showed "
+                                 "no CUDA kernel")
+        out[name] = dict(kernels=len(kernels), busy_ms=sum(
+            e.time_range.elapsed_us() for e in kernels) / 1e3)
+        print(f"# kernels a call: {name} at {where} launches "
+              f"{out[name]['kernels']} CUDA kernels, "
+              f"{out[name]['busy_ms']:.3f} ms of them on the device",
+              flush=True)
     return out
 
 
@@ -1196,13 +1235,13 @@ def _bound_slabs(args, walked: int) -> dict:
                 bytes=nbytes, ops=ops, visits=(1 + v + p) * walked)
 
 
-def _stage_ms(st, cfg, frames: int):
+def _stage_ms(st, cfg, frames: int, sleep_cycles: int = 200_000_000):
     """Device ms of the step's three stages, averaged over ``frames``
-    frames, on CUDA events.  Each frame is queued behind a ~100 ms sleep
-    kernel, so the host has queued the stages before the device reaches
-    them and the events time device work alone (``device_only`` says
-    whether the host's enqueue did finish inside the sleep).  Returns
-    (state after the frames, dict of ms)."""
+    frames, on CUDA events.  Each frame is queued behind a sleep kernel of
+    ``sleep_cycles`` (~100 ms by default), so the host has queued the
+    stages before the device reaches them and the events time device work
+    alone (``device_only`` says whether the host's enqueue did finish
+    inside the sleep).  Returns (state after the frames, dict of ms)."""
     import torch
     from phyx_tpu_torch.step import contact_stage, finish_stage, solve_stage
     names = ("contact_stage", "solve_stage", "finish_stage")
@@ -1211,7 +1250,7 @@ def _stage_ms(st, cfg, frames: int):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
         _sync()
         ev[0].record()
-        torch.cuda._sleep(200_000_000)
+        torch.cuda._sleep(sleep_cycles)
         t0 = time.perf_counter()
         ev[1].record()
         bodies, pairs, contacts, jrows, jwarm = contact_stage(st, cfg)
@@ -1475,14 +1514,19 @@ def _k1_in_device_memory(args, what: str) -> dict:
     """K1 with its last-level array and working columns in device memory
     (the placement of frames above N = 51,200; the columns' alone above
     19,285, as at the 20k frame) against K1 as the wrapper places them, on
-    all passes, gated as the frame is and ungated: equal to the bit.  Then
-    timed.  These launches of the wrapper are comparisons, made after the
-    main path's counts were read."""
+    all passes, gated (as the frame is, or where its gates are off with
+    thresholds that skip every pass after the first) and ungated: equal to
+    the bit.  Then timed.  These launches of the wrapper are comparisons,
+    made after the main path's counts were read."""
+    import torch
     from phyx_tpu_torch.kernels.contact_solver_streamed import \
         solve_in_device_memory
     k1 = _wrappers()["K1"]
+    gates = args.get("tols")
+    if gates is None:
+        gates = torch.full((2,), 1e30, dtype=torch.float32, device="cuda")
     err = 0.0
-    for tols in (args.get("tols"), None):
+    for tols in (gates, None):
         ref = k1(**dict(args, tols=tols))
         got = solve_in_device_memory(**dict(args, tols=tols))
         _sync()
@@ -2125,6 +2169,331 @@ def phase_pile500(card: str) -> dict:
                     f"{key}_pile500": k2[key] for key in _K2_KEYS}))
 
 
+# the colored solve on the card against the same solve on the CPU: max
+# abs difference of every float output (the card sums the final color
+# class and the warm start in another order).  Sound readings on the H100:
+# up to 2.7e-5 (the pile at 4 colors after one pass of each kind); each
+# check also reads a solve one velocity pass short, which must land above
+# the limit
+COLORED_ATOL = 1e-4
+_SOLVE_KEYS = ("vel", "angvel", "dvel", "dangvel", "accum_n", "accum_t",
+               "residual", "joint_accum")
+
+
+def _moved(x, device):
+    """A record, a dict of records or a record tree with every tensor on
+    ``device``."""
+    import dataclasses
+
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, dict):
+        return {k: _moved(v, device) for k, v in x.items()}
+    if dataclasses.is_dataclass(x):
+        return x.replace(**{f.name: _moved(getattr(x, f.name), device)
+                            for f in dataclasses.fields(x)})
+    return x
+
+
+def _colored_solve(inputs: dict, cfg) -> dict:
+    """The colored solve of one frame (``step.solve_colored``) on the
+    device of ``inputs`` (the frame's contact stage), with its contact and
+    joint colors (``step.colored_rows``) and the contact coloring's
+    conflicts."""
+    from phyx_tpu_torch.coloring import check_coloring
+    from phyx_tpu_torch.step import colored_rows, solve_colored
+    args = (inputs["bodies"], inputs["contacts"], inputs["joints"],
+            inputs["joint_rows"], inputs["joint_warm"], cfg)
+    static, colored, xj = colored_rows(*args)
+    out = dict(color=colored.color,
+               conflicts=check_coloring(colored, static, cfg))
+    if xj is not None:
+        out["joint_color"] = xj.color
+    bodies, an, at, res, joints = solve_colored(*args)
+    out.update(vel=bodies.vel, angvel=bodies.angvel, dvel=bodies.dvel,
+               dangvel=bodies.dangvel, accum_n=an, accum_t=at, residual=res,
+               joint_accum=joints.accum)
+    return out
+
+
+def _colored_parts(bodies, contacts, joints, jrows, jwarm, cfg) -> dict:
+    """The colored solve of one frame (``step.solve_colored``) split into
+    its parts, each a function of the frame's inputs and the parts before
+    it: the coloring (``step.colored_rows``), the warm start, the velocity
+    passes and the displacement passes."""
+    from phyx_tpu_torch import solver
+    from phyx_tpu_torch.step import colored_rows
+
+    def coloring():
+        return colored_rows(bodies, contacts, joints, jrows, jwarm, cfg)
+
+    _, colored, xj = coloring()
+    warm = solver.warm_start(bodies, colored, xj)
+    vel = solver.solve_velocity(warm, colored, cfg, xj)[0]
+    return {
+        "coloring": coloring,
+        "warm start": lambda: solver.warm_start(bodies, colored, xj),
+        "velocity passes": lambda: solver.solve_velocity(warm, colored, cfg,
+                                                         xj),
+        "displacement passes": lambda: solver.solve_position(
+            vel, colored, cfg, xj)}
+
+
+def _solve_diff(card: dict, host: dict, what: str) -> float:
+    """Max abs difference of the colored solve's float outputs, card
+    (``_colored_solve`` on the card) against host (on the CPU); raises on a
+    non-finite output."""
+    import torch
+    err = 0.0
+    for k in _SOLVE_KEYS:
+        a, b = card[k].cpu(), host[k]
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError(f"{what}: non-finite {k}")
+        if a.numel():
+            err = max(err, float((a.double() - b.double()).abs().max()))
+    return err
+
+
+def _bit_equal(a, b) -> bool:
+    import torch
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().reshape(-1).view(torch.uint8),
+        b.contiguous().reshape(-1).view(torch.uint8))
+
+
+def _colored_checks(st, cfg, what: str) -> dict:
+    """At a settled frame: the colors on the card equal the CPU's (as
+    integers), the coloring is conflict-free (``check_coloring`` 0), the
+    share of live rows in the final class, the colored solve on the card
+    within ``COLORED_ATOL`` of the same solve on the CPU while the card's
+    solve one velocity pass short lands above it, and the solve and the
+    whole step, each run twice on the card, equal to the bit."""
+    import dataclasses
+
+    import torch
+    from phyx_tpu_torch.step import contact_stage, step
+    bodies, _, contacts, jrows, jwarm = contact_stage(st, cfg)
+    inputs = dict(bodies=bodies, contacts=contacts, joints=st.joints,
+                  joint_rows=jrows, joint_warm=jwarm)
+    card = _colored_solve(inputs, cfg)
+    again = _colored_solve(inputs, cfg)
+    t0 = time.perf_counter()
+    host = _colored_solve(_moved(inputs, "cpu"), cfg)
+    host_s = time.perf_counter() - t0
+    for k in card:
+        if not _bit_equal(card[k], again[k]):
+            raise AssertionError(f"{what}: two colored solves of one frame "
+                                 f"on the card differ in {k}")
+    steps = [step(st, cfg) for _ in range(2)]
+    for rec in ("bodies", "joints", "cache", "stats"):
+        for f in dataclasses.fields(getattr(steps[0], rec)):
+            if not _bit_equal(getattr(getattr(steps[0], rec), f.name),
+                              getattr(getattr(steps[1], rec), f.name)):
+                raise AssertionError(f"{what}: two steps of one frame on "
+                                     f"the card differ in {rec}.{f.name}")
+    for k in ("color", "joint_color", "conflicts"):
+        if k in card and not torch.equal(card[k].cpu(), host[k]):
+            raise AssertionError(f"{what}: {k} differs between the card "
+                                 "and the CPU")
+    if int(card["conflicts"]) != 0:
+        raise AssertionError(f"{what}: check_coloring counts "
+                             f"{int(card['conflicts'])} conflicts")
+    err = _solve_diff(card, host, what)
+    if not err <= COLORED_ATOL:
+        raise AssertionError(f"{what}: the colored solve on the card is "
+                             f"{err} from the CPU's (atol {COLORED_ATOL})")
+    # the check's reach: a solve that misses its last velocity pass
+    short = _solve_diff(_colored_solve(inputs, cfg.replace(
+        velocity_iterations=cfg.velocity_iterations - 1)), host, what)
+    if not short > COLORED_ATOL:
+        raise AssertionError(f"{what}: a solve one velocity pass short is "
+                             f"only {short} from the CPU's full solve, "
+                             f"within the atol {COLORED_ATOL}")
+    live = contacts.valid
+    k = cfg.num_colors - 1
+    final = int((live & (card["color"] == k)).sum())
+    out = dict(colors=cfg.num_colors, live_rows=int(live.sum()),
+               final_class_rows=final,
+               final_class_share=final / max(1, int(live.sum())),
+               max_abs_err_cpu=err, atol=COLORED_ATOL,
+               max_abs_err_one_pass_short=short, cpu_solve_s=host_s)
+    if "joint_color" in card:
+        jlive = st.joints.kind != 0
+        out.update(joint_rows=int(jlive.sum()), joint_final_class_rows=int(
+            (jlive & (card["joint_color"] == k)).sum()))
+    print(f"# colored at {what}: colors equal to the CPU's, 0 conflicts, "
+          f"{final} of {out['live_rows']} live contact rows in the final "
+          f"class ({out['final_class_share']:.4f}); solve on the card vs "
+          f"the CPU: max abs diff {err} (atol {COLORED_ATOL}; one velocity "
+          f"pass short: {short}); two solves and two steps of the frame on "
+          "the card equal to the bit",
+          flush=True)
+    return out
+
+
+# bench row C's frame of its quality verdict: bench.py's 300-frame settle
+# and its timed 100 + 200 frames (`--steps 100`, BASELINE.md:22)
+ROW_C_VERDICT_FRAME = 600
+
+
+def _colored_scene(scene: str, boxes: int, settle: int, card: str,
+                   verdict_frame: int = 0) -> dict:
+    """One of bench.py's scenes under ``solver_backend="xla"`` (its
+    build() policy otherwise): settled and timed by ``_drive`` (no kernel
+    of K1-K7 may launch), run on to ``verdict_frame`` where that is later
+    (no host wait either), bench.py's quality bar, stage times, the checks
+    of ``_colored_checks``, and the frame's stages handed to the
+    profiler's count of kernels."""
+    import torch
+    from phyx_tpu_torch import scenes
+    from phyx_tpu_torch.step import (contact_stage, finish_stage, rollout,
+                                     solve_stage, stats_dict)
+    cfg = _bench_cfg(scene, boxes).replace(solver_backend="xla")
+    kw = {"seed": 0} if scene == "pile" else {}
+    st, cfg, out = _drive(scene, boxes, settle, (), card, built=(
+        cfg, getattr(scenes, scene)(cfg, boxes, **kw).build()))
+    if verdict_frame > out["frames_total"]:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            st = rollout(st, cfg, verdict_frame - out["frames_total"])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        out.update(stats_dict(st.stats), frames_total=verdict_frame)
+    if scene == "pile":
+        out["penetration_ratio"] = out["max_penetration"] / 0.5
+        ok = out["num_contacts"] > 0 and out["penetration_ratio"] <= 0.6
+    else:
+        ok = out["residual"] <= 1e-2
+    if out["pair_overflow"] != 0 or not ok:
+        raise AssertionError(f"colored {scene} bar missed: {out}")
+    # no sleep ahead: a colored solve queues more kernels than the launch
+    # queue holds, so behind a sleep the host waits for it (666 ms of
+    # "enqueue" behind a 0.5 s sleep at the 10k frame).  The events time
+    # the device stream's wall clock, idle gaps included; the stages' busy
+    # time comes from torch.profiler (``_kernels_a_call``)
+    st, stages = _stage_ms(st, cfg, frames=3, sleep_cycles=0)
+    del stages["sleep"], stages["device_only"]
+    checks = _colored_checks(st, cfg, f"the settled {scene} frame")
+    if scene == "pile":
+        # colors scarce: the final class sums real conflicts, through the
+        # sorted index_put, which must be as deterministic as the rest.
+        # One pass of each kind: over 10 + 6 passes a final class holding
+        # most rows is a Jacobi sweep on a 100-deep pile, which amplifies
+        # the order of its sums (0.73 card vs CPU at 4 colors in a
+        # development run), so card and CPU are compared after one
+        scarce = _colored_checks(st, cfg.replace(
+            num_colors=4, velocity_iterations=1, position_iterations=1),
+            "the settled pile frame at 4 colors, one pass of each kind")
+        if scarce["final_class_rows"] <= 0:
+            raise AssertionError("4 colors left the final class empty")
+        checks["four_colors"] = scarce
+    # the settled frame's three stages, for the profiler's count and busy
+    # time (each a pure function of the frame)
+    bodies, pairs, contacts, jrows, jwarm = contact_stage(st, cfg)
+    solved = solve_stage(bodies, contacts, pairs, st.joints, jrows, jwarm,
+                         cfg)
+    where = f"the settled {scene} frame"
+    _FRAMES[f"{scene} xla contact_stage"] = (
+        where, lambda: contact_stage(st, cfg))
+    _FRAMES[f"{scene} xla solve_stage"] = (where, lambda: solve_stage(
+        bodies, contacts, pairs, st.joints, jrows, jwarm, cfg))
+    _FRAMES[f"{scene} xla finish_stage"] = (where, lambda: finish_stage(
+        st, cfg, solved[0], solved[4], solved[5], contacts, *solved[1:4]))
+    for part, fn in _colored_parts(bodies, contacts, st.joints, jrows,
+                                   jwarm, cfg).items():
+        _FRAMES[f"{scene} xla solve: {part}"] = (where, fn)
+    what = "box pile" if scene == "pile" else "link chain"
+    out.update(metric=f"steps/s @ {boxes}-{what}, solver_backend xla "
+               "(port, colored solve in torch ops)", stage_event_ms=stages,
+               **checks)
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def _colored_fallback_frame() -> float:
+    """One frame of a small "pallas" configuration that takes the colored
+    fallback (over the reference's fused budget, contact slots not whole
+    1024-slot blocks) on the card against the CPU: integers equal, floats
+    within 1e-4, no kernel of K1-K7 launched.  Returns the max float
+    diff."""
+    import dataclasses
+
+    import numpy as np
+    from phyx_tpu_torch import SimConfig, scenes, tiling
+    from phyx_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from phyx_tpu_torch.step import rollout, step
+    cfg = SimConfig(max_bodies=64, max_pairs=5888, broadphase="sap_grid",
+                    sap_window=32, solver_backend="pallas")
+    if not tiling.colored_fallback(cfg, 64, 2 * 5888, 0):
+        raise AssertionError("the fallback configuration is not one")
+    st = rollout(scenes.pile(cfg, 60, seed=3).build("cpu"), cfg, 5)
+    _reset_counts()
+    card = state_to_numpy(step(_moved(st, "cuda"), cfg))
+    if any(_counts().values()):
+        raise AssertionError(f"colored fallback launched {_counts()}")
+    host = state_to_numpy(step(st, cfg))
+    worst = 0.0
+    for rec in ("bodies", "joints", "cache", "stats"):
+        for f in dataclasses.fields(getattr(host, rec)):
+            a = getattr(getattr(host, rec), f.name)
+            b = getattr(getattr(card, rec), f.name)
+            if a.dtype.kind in "biu":
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"colored fallback: {rec}."
+                                         f"{f.name} differs")
+            elif a.size:
+                worst = max(worst, float(np.abs(a.astype(np.float64)
+                                                - b).max()))
+    if not worst <= 1e-4:
+        raise AssertionError(f"colored fallback: card vs CPU off by {worst}")
+    print(f"# colored fallback: a 60-box \"pallas\" frame at 11,776 contact "
+          f"slots, card vs CPU: integers equal, max float diff {worst}",
+          flush=True)
+    return worst
+
+
+def _colored_summary(colored: dict, a_call: dict) -> dict:
+    """The colored scenes' frames: the stages' CUDA kernels and device
+    busy ms (torch.profiler) beside the slope's frame ms, and the device's
+    idle share of the frame."""
+    out = {}
+    for key, scene in (("pile10k", "pile"), ("chain", "chain")):
+        rec = colored[key]
+        stages = {s: a_call[f"{scene} xla {s}"] for s in (
+            "contact_stage", "solve_stage", "finish_stage")}
+        busy = sum(v["busy_ms"] for v in stages.values())
+        parts = {k[len(f"{scene} xla solve: "):]: v for k, v in a_call.items()
+                 if k.startswith(f"{scene} xla solve: ")}
+        out[key] = dict(
+            steps_per_s=rec["steps_per_s"], frame_ms=rec["frame_ms"],
+            host_enqueue_ms=rec["stage_event_ms"]["host_enqueue"],
+            stage_event_ms=rec["stage_event_ms"], stages=stages,
+            solve_parts=parts,
+            kernels_a_frame=sum(v["kernels"] for v in stages.values()),
+            device_busy_ms=busy, idle_share=1.0 - busy / rec["frame_ms"])
+    return out
+
+
+def phase_colored(card: str) -> dict:
+    """The colored solve (``solver_backend="xla"``) on the 10k pile (the
+    200-frame settle of its K1 run) and the 1000-link chain (the bench's
+    300, its bar read at bench row C's frame 600), and one
+    colored-fallback "pallas" frame."""
+    t0 = time.perf_counter()
+    out = dict(pile10k=_colored_scene("pile", 10_000, 200, card),
+               # the chain's residual passes through the transients of its
+               # fall until about frame 350 under the colored solve, in
+               # the reference too (PERF.md §6), so its bar is read where
+               # bench row C reads it
+               chain=_colored_scene("chain", 1000, 300, card,
+                                    ROW_C_VERDICT_FRAME),
+               fallback_max_abs_err=_colored_fallback_frame())
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"# colored phase: {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def _row(name, source, replaces, k, timed, **extra) -> dict:
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "ms_full_solve", "bound_ms_full_solve",
@@ -2192,7 +2561,10 @@ def main() -> int:
     envs = phase_envs1024(card)
     envs64 = phase_envs64(card, envs)
     pile500 = phase_pile500(card)
+    colored = phase_colored(card)
     a_call = _kernels_a_call()
+    print(json.dumps({"colored": _colored_summary(colored, a_call)}),
+          flush=True)
     passes = "warm + 1 velocity + 1 displacement pass"
     k3, k5 = pile20k["k3"], pile20k["k5"]
     # the tiled kernels' level schedule at the 20k frame

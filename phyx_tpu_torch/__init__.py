@@ -3,21 +3,22 @@
 The JAX package ``phyx_tpu`` is the reference; this package mirrors its
 module names, record field names and dtypes so each piece has a
 counterpart, and never imports jax or ``phyx_tpu``.  Plain stages are torch
-operations; the serial solve is CUDA written for Hopper (``csrc/``, built
-at first use), in a fused form (state in shared memory), a streamed form
-(state in device memory) and two slab-ordered tiled forms (the x-rank
-embedded body table in device memory), and so is the mega-scene
-broadphase's slab-windowed sweep.
+operations, and so is the colored solve (on-device coloring and colored
+Gauss-Seidel sweeps), which the reference writes as plain XLA; the serial
+solve is CUDA written for Hopper (``csrc/``, built at first use), in a
+fused form (state in shared memory), a streamed form (state in device
+memory) and two slab-ordered tiled forms (the x-rank embedded body table
+in device memory), and so are the broadphases' sweeps.
 
 Ported so far: ``SimConfig``, the state records, the scenes (piles, stack,
 pyramid, avalanche, and the jointed chain, bridge and net), batched envs
 as one mega-scene (``parallel.envs.concat_envs``), the grid, tiled-sweep
 and all-pairs broadphases with banded and segmented sweep keys and the
 slab-major finalize, jointed-pair exclusion, narrowphase, the contact
-cache, solver and joint prepare, the five kernels, ``step`` and
-``rollout`` — for ``solver_backend="pallas"`` and ``"pallas_tiled"``.
-Entry points put state on the card unless the caller names another
-device.
+cache, solver and joint prepare, the coloring, the seven kernels,
+``step``, ``rollout`` and ``World`` — for every ``solver_backend``
+(``"xla"``, the default, ``"pallas"`` and ``"pallas_tiled"``).  Entry
+points put state on the card unless the caller names another device.
 
     from phyx_tpu_torch import SimConfig, scenes
     from phyx_tpu_torch.step import step, rollout
@@ -26,9 +27,9 @@ device.
 from phyx_tpu_torch.config import SimConfig
 from phyx_tpu_torch.types import (Bodies, ContactCache, Joints, SolverStats,
                                   State)
-from phyx_tpu_torch.world import SceneBuilder
+from phyx_tpu_torch.world import SceneBuilder, World
 
 __version__ = "0.1.0"
 
 __all__ = ["SimConfig", "Bodies", "ContactCache", "Joints", "State",
-           "SolverStats", "SceneBuilder"]
+           "SolverStats", "SceneBuilder", "World"]

@@ -48,7 +48,7 @@ class Contacts:
     dst_v: torch.Tensor        # (C,) f32 restitution target velocity
     dst_dv: torch.Tensor       # (C,) f32 displacement target velocity
     c_nt: torch.Tensor         # (C,) f32 normal->tangent coupling
-    color: torch.Tensor        # (C,) int32 (colored backend; 0 here)
+    color: torch.Tensor        # (C,) int32 color class (coloring.py)
 
 
 def _sel(cond, a, b):

@@ -13,11 +13,18 @@ feeds the serial solve kernel (``phyx_tpu/solver.py``).
 * ``solve_pallas_tiled2`` and ``solve_pallas_tiled``: the same for the
   tiled tier, K3 on the slab-major pair buffer and K5 on rows routed here
   to per-slab budgets (``tiling`` has the slab embedding).
+* ``warm_start``, ``solve_velocity`` and ``solve_position``: the colored
+  solve (``solver_backend="xla"`` and the colored fallback), torch ops.
+  Each pass sweeps the contact colors, then the joint colors, one after
+  another; a color's rows run as one full-width masked batch (gather, row
+  solve, clamp the accumulated impulse, scatter-add), which is the serial
+  algorithm in the color-sorted order because no dynamic body repeats
+  inside a non-final color (``coloring``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -379,3 +386,305 @@ def solve_pallas_tiled(bodies: Bodies, contacts: Contacts,
         joint_accum = torch.where(j_ok[:, None], acc[j_slot, 0:2], 0.0)
     return (_unembed_bodies(bodies, body_out, xorder, cfg), acc_c[:, 0],
             acc_c[:, 1], res[0], ovf, joint_accum)
+
+
+class XlaJoints(NamedTuple):
+    """User-joint rows of the colored solve: ``rows``/``warm`` from
+    ``joints.prepare_joint_rows``, ``color`` from ``coloring.color_rows``
+    over the joint graph, endpoints clamped to the body capacity."""
+
+    rows: torch.Tensor    # (J, 12) f32
+    b1: torch.Tensor      # (J,) int32
+    b2: torch.Tensor      # (J,) int32
+    warm: torch.Tensor    # (J, 2) f32 warm-start impulse
+    color: torch.Tensor   # (J,) int32
+    valid: torch.Tensor   # (J,) bool
+
+
+class _Rows(NamedTuple):
+    """What a sweep reads of its rows' two bodies, body-1 rows stacked on
+    body-2 rows: the endpoints, the (-y, x) form of the body offsets, and
+    per row [inv_mass, inv_mass, inv_inertia] with the sign of the
+    impulse that body takes."""
+
+    b12: torch.Tensor     # (2R,) int64
+    rp: torch.Tensor      # (2R, 2) perp(r1), perp(r2)
+    scale: torch.Tensor   # (2R, 3) -[im1, im1, ii1], +[im2, im2, ii2]
+
+
+def _rows(bodies: Bodies, b1, b2, r1, r2) -> _Rows:
+    b12 = torch.cat([b1, b2]).to(torch.int64)
+    r = b1.shape[0]
+    im = bodies.inv_mass.index_select(0, b12)
+    scale = torch.stack(
+        [im, im, bodies.inv_inertia.index_select(0, b12)], dim=1)
+    scale[:r] = -scale[:r]
+    return _Rows(b12, m2.perp(torch.cat([r1, r2])), scale)
+
+
+def _sum2(x: torch.Tensor) -> torch.Tensor:
+    """x[..., 0] + x[..., 1]: ``m2.dot``'s two-term sum as one add."""
+    a, b = x.unbind(-1)
+    return a + b
+
+
+def _rel(v: torch.Tensor, rows: _Rows) -> torch.Tensor:
+    """Relative velocity (R, 2) of the rows' points, body 2 minus body 1,
+    from the (N, 3) [vx, vy, w] table ``v``: ``v + w x r`` (w * (-ry) is
+    the reference's -(w * ry) exactly)."""
+    gv, gw = v.index_select(0, rows.b12).split([2, 1], dim=1)
+    p1, p2 = (gv + gw * rows.rp).chunk(2)
+    return p2 - p1
+
+
+def _ordered_add(v: torch.Tensor, idx: torch.Tensor,
+                 upd: torch.Tensor) -> torch.Tensor:
+    """``v`` with row k of ``upd`` added to row ``idx[k]``, the same bits
+    every run.  On the card ``index_put(accumulate=True)`` gives them (it
+    sorts by index; ``index_add`` is atomic there).  On the CPU
+    ``index_add`` does, summing in the order of k at any thread count,
+    while ``index_put(accumulate=True)`` keeps that order on one thread
+    only and races on several."""
+    if v.is_cuda:
+        return v.index_put((idx,), upd, accumulate=True)
+    return v.index_add(0, idx, upd)
+
+
+def _apply(v: torch.Tensor, rows: _Rows, p: torch.Tensor,
+           conflicts: bool) -> torch.Tensor:
+    """``v`` (N, 3) with impulse ``p`` (R, 2) applied to both bodies of
+    each row: -p to body 1, +p to body 2, the reference's products to the
+    bit (a sign moved between factors, ``cross(r, p)`` as the two-term
+    sum of ``perp(r) * p``).  Per body the adds come in row order, body-1
+    rows first, as the reference's four scatter-adds.  A batch whose rows
+    may share a dynamic body (``conflicts``: the final color class, the
+    warm start) is summed by ``_ordered_add``; elsewhere each dynamic body
+    takes at most one nonzero add and the rest are signed zeros, whose sum
+    does not depend on the order, so ``index_add`` gives the same bits
+    every run on either device."""
+    p2 = torch.cat([p, p])
+    upd = torch.cat([p2, _sum2(rows.rp * p2).unsqueeze(1)], dim=1)
+    upd = upd * rows.scale
+    if conflicts:
+        return _ordered_add(v, rows.b12, upd)
+    return v.index_add(0, rows.b12, upd)
+
+
+def _body_table(vel, angvel) -> torch.Tensor:
+    return torch.cat([vel, angvel[:, None]], dim=1)
+
+
+class _JointGeom(NamedTuple):
+    """Per-kind joint row geometry, from ``rows[:, 11]``: revolute rows
+    take r1 = rows[0:2], r2 = rows[2:4]; distance rows r1 = rows[2:4],
+    r2 = rows[4:6] and the axis n = rows[0:2]."""
+
+    is_rev: torch.Tensor  # (J, 1) bool
+    rows: _Rows
+    n: torch.Tensor       # (J, 2) distance axis
+    m: torch.Tensor       # (J, 2, 2) revolute [[m00, m01], [m01, m11]]
+    m11: torch.Tensor     # (J, 1) distance effective mass
+
+
+def _joint_geom(bodies: Bodies, j: XlaJoints) -> _JointGeom:
+    is_rev = (j.rows[:, 11] == 1.0)[:, None]
+    r1 = torch.where(is_rev, j.rows[:, 0:2], j.rows[:, 2:4])
+    r2 = torch.where(is_rev, j.rows[:, 2:4], j.rows[:, 4:6])
+    m00, m01, m11 = j.rows[:, 4:5], j.rows[:, 5:6], j.rows[:, 6:7]
+    m = torch.stack([torch.cat([m00, m01], 1), torch.cat([m01, m11], 1)], 1)
+    return _JointGeom(is_rev, _rows(bodies, j.b1, j.b2, r1, r2),
+                      j.rows[:, 0:2], m, m11)
+
+
+def _color_masks(valid, color, num_colors: int) -> list:
+    """Per color c, the (R,) bool mask of the live rows of color c."""
+    cols = torch.arange(num_colors, dtype=color.dtype, device=color.device)
+    return list((valid[None] & (color[None] == cols[:, None])).unbind(0))
+
+
+def _passes(n_passes: int, gated: bool, thresh, carry: tuple, run) -> tuple:
+    """``n_passes`` passes of ``run`` over ``carry``, whose last entry is
+    the residual of the last executed pass.  Gated, a pass after the first
+    keeps the old carry where that residual is below ``thresh``: computed
+    and discarded element by element, with no host read."""
+    for it in range(n_passes):
+        new = run(carry)
+        if gated and it > 0:
+            done = carry[-1] < thresh
+            new = tuple(torch.where(done, old, nw)
+                        for old, nw in zip(carry, new))
+        carry = new
+    return carry
+
+
+def _max_abs(*xs) -> torch.Tensor:
+    return torch.stack([x.abs().max() for x in xs]).max()
+
+
+def warm_start(bodies: Bodies, contacts: Contacts,
+               joints: Optional[XlaJoints] = None) -> Bodies:
+    """Apply the cached accumulated impulses before the passes; joint warm
+    impulses after the contacts' (the kernels' order): revolute re-applies
+    its 2D impulse, distance its scalar along the current axis."""
+    c = contacts
+    t = m2.perp(c.normal)
+    imp = c.normal * c.warm_n[:, None] + t * c.warm_t[:, None]
+    imp = torch.where(c.valid[:, None], imp, 0.0)
+    v = _apply(_body_table(bodies.vel, bodies.angvel),
+               _rows(bodies, c.b1, c.b2, c.r1, c.r2), imp, True)
+    if joints is not None:
+        j = joints
+        g = _joint_geom(bodies, j)
+        p = torch.where(g.is_rev, j.warm, g.n * j.warm[:, 0:1])
+        p = torch.where(j.valid[:, None], p, 0.0)
+        v = _apply(v, g.rows, p, True)
+    return bodies.replace(vel=v[:, 0:2], angvel=v[:, 2])
+
+
+def solve_velocity(bodies: Bodies, contacts: Contacts, cfg: SimConfig,
+                   joints: Optional[XlaJoints] = None):
+    """The velocity passes.  Returns (bodies', accum_n, accum_t, residual):
+    the residual is the max |impulse delta| of the last executed pass.
+    With ``joints``, joint colors sweep after the contact colors of every
+    pass and the (J, 2) joint accumulator is appended to the tuple.
+
+    A row changes only in its own color's sweep, so the pass's residual is
+    taken once, from each row's sum of its per-sweep deltas (all zero but
+    one), instead of a max after every sweep."""
+    c = contacts
+    k = cfg.num_colors
+    nt = torch.stack([c.normal, m2.perp(c.normal)], dim=1)   # (C, 2, 2)
+    neg_mass_t = -c.mass_t
+    rows = _rows(bodies, c.b1, c.b2, c.r1, c.r2)
+    masks = _color_masks(c.valid, c.color, k)
+    if joints is not None:
+        j = joints
+        g = _joint_geom(bodies, j)
+        neg_m11 = -g.m11
+        jmasks = _color_masks(j.valid, j.color, k)
+        # a distance joint keeps its scalar impulse in column 0
+        col0 = torch.arange(2, device=j.valid.device) == 0
+        jmasks0 = [m[:, None] & col0 for m in jmasks]
+
+    def color_sweep(col, v, an, at, d_nt):
+        mask = masks[col]
+        # one relative-velocity evaluation: the tangent velocity after the
+        # normal impulse follows from the coupling c_nt (solver.prepare)
+        vn, vt = _sum2(nt * _rel(v, rows).unsqueeze(1)).unbind(1)
+        d = (c.dst_v - vn) * c.mass_n
+        dn = torch.where(mask, (an + d).clamp_(min=0.0) - an, 0.0)
+        an = an + dn
+        d = (vt + c.c_nt * dn) * neg_mass_t
+        max_f = c.friction * an
+        dt = torch.where(mask, (at + d).clamp_(-max_f, max_f) - at, 0.0)
+        at = at + dt
+        dnt = torch.stack([dn, dt], dim=1)
+        imp = _sum2((nt * dnt.unsqueeze(2)).transpose(1, 2))  # n dn + t dt
+        v = _apply(v, rows, imp, col == k - 1)
+        return v, an, at, d_nt + dnt
+
+    def joint_color_sweep(col, v, jan, jp):
+        mask = jmasks[col].unsqueeze(1)
+        dv = _rel(v, g.rows)
+        # revolute: p = -(M @ dv); distance: p = -(m * n.dv) * n
+        dd = neg_m11 * _sum2(g.n * dv).unsqueeze(1)
+        p = torch.where(g.is_rev, -_sum2(g.m * dv.unsqueeze(1)), g.n * dd)
+        p = torch.where(mask, p, 0.0)
+        jan = jan + torch.where(g.is_rev, p,
+                                torch.where(jmasks0[col], dd, 0.0))
+        v = _apply(v, g.rows, p, col == k - 1)
+        return v, jan, jp + p
+
+    def run(carry):
+        v, an, at, jan, _ = carry
+        d_nt = torch.zeros((an.shape[0], 2), dtype=torch.float32,
+                           device=an.device)
+        for col in range(k):
+            v, an, at, d_nt = color_sweep(col, v, an, at, d_nt)
+        if joints is None:
+            return v, an, at, jan, d_nt.abs().max()
+        jp = torch.zeros_like(jan)
+        for col in range(k):
+            v, jan, jp = joint_color_sweep(col, v, jan, jp)
+        return v, an, at, jan, _max_abs(d_nt, jp)
+
+    gated = cfg.velocity_tol > 0.0 or cfg.velocity_rel_tol > 0.0
+    vthresh = velocity_threshold(
+        cfg, contacts, joints.warm if joints is not None else None)
+    if joints is not None:
+        jan0 = joints.warm * torch.cat(
+            [torch.ones_like(g.is_rev, dtype=torch.float32),
+             g.is_rev.float()], dim=1)
+    else:
+        jan0 = torch.zeros((0, 2), dtype=torch.float32,
+                           device=c.valid.device)
+    v, an, at, jan, res = _passes(
+        cfg.velocity_iterations, gated, vthresh,
+        (_body_table(bodies.vel, bodies.angvel), c.warm_n, c.warm_t, jan0,
+         torch.zeros((), dtype=torch.float32, device=c.valid.device)), run)
+    out = bodies.replace(vel=v[:, 0:2], angvel=v[:, 2])
+    if joints is not None:
+        return out, an, at, res, jan
+    return out, an, at, res
+
+
+def solve_position(bodies: Bodies, contacts: Contacts, cfg: SimConfig,
+                   joints: Optional[XlaJoints] = None) -> Bodies:
+    """The displacement passes on pseudo-velocities (split impulse): they
+    land in ``dvel``/``dangvel``, which position integration consumes.
+    With ``joints``, joint colors (anchor-error targets) sweep after the
+    contact colors of every pass.  The residual, taken only when gated,
+    is the velocity passes' (one sum of per-sweep deltas a pass)."""
+    c = contacts
+    k = cfg.num_colors
+    n = c.normal
+    rows = _rows(bodies, c.b1, c.b2, c.r1, c.r2)
+    masks = _color_masks(c.valid, c.color, k)
+    if joints is not None:
+        j = joints
+        g = _joint_geom(bodies, j)
+        jmasks = _color_masks(j.valid, j.color, k)
+        # revolute target (dstx, dsty); distance target scalar along n
+        jdst, jdst0 = j.rows[:, 7:9], j.rows[:, 7]
+    gated = cfg.position_rel_tol > 0.0
+
+    def color_sweep(col, dv, ad):
+        d = (c.dst_dv - _sum2(n * _rel(dv, rows))) * c.mass_n
+        d = torch.where(masks[col], (ad + d).clamp_(min=0.0) - ad, 0.0)
+        dv = _apply(dv, rows, n * d.unsqueeze(1), col == k - 1)
+        return dv, ad + d, d
+
+    def joint_color_sweep(col, dv):
+        rel = _rel(dv, g.rows)
+        dd = (g.m11 * (jdst0 - _sum2(g.n * rel)).unsqueeze(1))
+        p = torch.where(g.is_rev, _sum2(g.m * (jdst - rel).unsqueeze(1)),
+                        g.n * dd)
+        p = torch.where(jmasks[col].unsqueeze(1), p, 0.0)
+        return _apply(dv, g.rows, p, col == k - 1), p
+
+    def run(carry):
+        dv, ad, _ = carry
+        dsum = torch.zeros_like(ad)
+        for col in range(k):
+            dv, ad, d = color_sweep(col, dv, ad)
+            if gated:
+                dsum = dsum + d
+        deltas = [dsum]
+        if joints is not None:
+            jp = torch.zeros_like(j.warm)
+            for col in range(k):
+                dv, p = joint_color_sweep(col, dv)
+                if gated:
+                    jp = jp + p
+            deltas.append(jp)
+        return dv, ad, _max_abs(*deltas) if gated else carry[-1]
+
+    pthresh = position_threshold(
+        cfg, contacts, joints.warm if joints is not None else None)
+    dv, _, _ = _passes(
+        cfg.position_iterations, gated, pthresh,
+        (torch.zeros((bodies.capacity, 3), dtype=torch.float32,
+                     device=c.valid.device),
+         torch.zeros_like(c.warm_n),
+         torch.zeros((), dtype=torch.float32, device=c.valid.device)), run)
+    return bodies.replace(dvel=dv[:, 0:2], dangvel=dv[:, 2])

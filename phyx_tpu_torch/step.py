@@ -8,15 +8,16 @@ One frame, with no host round-trip:
     -> jointed-pair exclusion
     -> narrowphase (batched SAT + clip)
     -> contact-cache join (warm-start impulses carried across frames)
-    -> prepare contacts and joint rows + valid-first compaction + serial
-       solve kernel (warm start, velocity passes, displacement passes;
-       contact rows, then joint rows)
+    -> prepare contacts and joint rows + the solve: valid-first
+       compaction and a serial solve kernel, or the colored sweeps (warm
+       start, velocity passes, displacement passes; contact rows, then
+       joint rows)
     -> integrate positions (velocity + split-impulse pseudo-velocity)
     -> rebuild cache, emit stats
 
-Ported so far: ``solver_backend="pallas"`` and ``"pallas_tiled"``, with
-and without user joints.  Which function the solve computes follows the
-reference (``tiling.resolve_tiled``): the tiled tier where the reference
+Every ``solver_backend`` is ported, with and without user joints.  Which
+function the solve computes follows the reference
+(``tiling.resolve_tiled``): the tiled tier where the reference
 tiles (``pallas_tiled``, or bodies above its streamed budget, as the 20k
 pile), through K3 on the slab-major pair buffer, or K5 on rows routed to
 slab budgets for jointed scenes and ``tiled_routing=False``; elsewhere the
@@ -25,8 +26,11 @@ serial row order.  There one predicate picks the kernel
 accumulators sit in one block's shared memory, when they fit its 227 KB
 (the 1k pile, the 1000-link chain); the streamed kernel, which keeps them
 in device memory, otherwise (the 10k pile).  The two compute the same
-thing bit for bit.  Where the reference falls back to its colored solve,
-the port raises (ROADMAP M10).
+thing bit for bit.  ``"xla"``, and the ``"pallas"`` configurations where
+the reference falls back to it (``tiling.colored_fallback``), take the
+colored solve: on-device coloring (``coloring``), then colored
+Gauss-Seidel sweeps in torch ops (``solver.solve_velocity`` and
+``solve_position``).
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from phyx_tpu_torch import solver, tiling
 from phyx_tpu_torch.broadphase import (Pairs, broadphase, compute_aabbs,
                                        lex_sort_pairs, rank_order)
 from phyx_tpu_torch.cache import build_cache, lex_join, warm_start_from_cache
+from phyx_tpu_torch.coloring import color_contacts, color_rows
 from phyx_tpu_torch.config import SimConfig
 from phyx_tpu_torch.joints import prepare_joint_rows
 from phyx_tpu_torch.kernels import contact_solver
@@ -115,19 +120,54 @@ def prepare_joint_stage(bodies: Bodies, joints: Joints, cfg: SimConfig):
     return prepare_joint_rows(bodies, joints, cfg)
 
 
+def colored_rows(bodies: Bodies, contacts: Contacts, joints: Joints,
+                 joint_rows, joint_warm, cfg: SimConfig):
+    """The colored solve's rows (``phyx_tpu/step.py`` solve_stage's else
+    branch): contacts and joint rows colored on the device, static bodies
+    (both inverse masses 0) imposing no conflicts, joint endpoints clamped
+    to the body capacity.  Returns (body_static, colored contacts,
+    ``solver.XlaJoints`` or None where there are no joint slots)."""
+    body_static = (bodies.inv_mass == 0.0) & (bodies.inv_inertia == 0.0)
+    contacts = color_contacts(contacts, body_static, cfg)
+    xj = None
+    if joints.capacity:
+        jvalid = joints.kind != 0
+        nb = bodies.capacity - 1
+        jb1 = torch.clamp(joints.b1, max=nb)
+        jb2 = torch.clamp(joints.b2, max=nb)
+        xj = solver.XlaJoints(
+            rows=joint_rows, b1=jb1, b2=jb2, warm=joint_warm,
+            color=color_rows(jb1, jb2, jvalid, body_static, cfg.num_colors),
+            valid=jvalid)
+    return body_static, contacts, xj
+
+
+def solve_colored(bodies: Bodies, contacts: Contacts, joints: Joints,
+                  joint_rows, joint_warm, cfg: SimConfig):
+    """The colored solve: ``colored_rows``, then the warm start, the
+    velocity and the displacement passes, joint colors after the contact
+    colors.  Returns (bodies', accum_n, accum_t, residual, joints)."""
+    _, contacts, xj = colored_rows(bodies, contacts, joints, joint_rows,
+                                   joint_warm, cfg)
+    bodies = solver.warm_start(bodies, contacts, xj)
+    out = solver.solve_velocity(bodies, contacts, cfg, xj)
+    bodies, accum_n, accum_t, residual = out[:4]
+    if xj is not None:
+        joints = joints.replace(accum=out[4])
+    bodies = solver.solve_position(bodies, contacts, cfg, xj)
+    return bodies, accum_n, accum_t, residual, joints
+
+
 def solve_stage(bodies: Bodies, contacts: Contacts, pairs: Pairs,
                 joints: Joints, joint_rows, joint_warm, cfg: SimConfig):
     """The solve, in the reference's branch order (``phyx_tpu/step.py``
     solve_stage): the tiled tier (K3 when the pairs carry slab-major
     routing and there are no joints, else K5, whose slab clamps and budget
-    overflow are added to the pairs' counters); the colored fallback
-    raises; else compaction, K2 or K1, and the accumulator un-permute.
+    overflow are added to the pairs' counters); the colored solve for the
+    colored fallback; else for ``"pallas"`` compaction, K2 or K1, and the
+    accumulator un-permute, and for ``"xla"`` the colored solve.
     Returns (bodies', accum_n, accum_t, residual, joints with this frame's
     accumulated impulses, pairs)."""
-    if cfg.solver_backend not in ("pallas", "pallas_tiled"):
-        raise NotImplementedError(
-            f"solver_backend={cfg.solver_backend!r} is not ported yet: "
-            "ROADMAP M10 (the colored backend)")
     n = bodies.capacity
     c_cap = contacts.valid.shape[0]
     if tiling.resolve_tiled(cfg, n, c_cap):
@@ -148,11 +188,10 @@ def solve_stage(bodies: Bodies, contacts: Contacts, pairs: Pairs,
         raise ValueError(f"pallas_tiled needs the contact slots (2 x "
                          f"max_pairs = {c_cap}) in whole blocks of "
                          f"{tiling.BLK}, at least two")
-    if tiling.colored_fallback(cfg, n, c_cap, joints.capacity):
-        raise NotImplementedError(
-            f"{n} bodies with {c_cap} contact slots (not whole blocks of "
-            f"{tiling.BLK}, at least two) take the reference's colored "
-            "solve, which is not ported yet: ROADMAP M10")
+    if (cfg.solver_backend == "xla"
+            or tiling.colored_fallback(cfg, n, c_cap, joints.capacity)):
+        return solve_colored(bodies, contacts, joints, joint_rows,
+                             joint_warm, cfg) + (pairs,)
     compacted, order, num_live = compact_contacts(contacts)
     # the kernel predicate: the fused kernel when its state fits one
     # block's shared memory, else the streamed one

@@ -4,7 +4,7 @@ Boxes and user joints accumulate on the host in NumPy (not the hot path);
 ``build`` turns them into the fixed-capacity ``State`` on a device, the
 card unless the caller names another.  The arrays are computed exactly as
 the JAX package computes them, so both packages build bit-identical states
-from the same calls.
+from the same calls.  ``World`` owns a State and steps it.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ import torch
 
 from phyx_tpu_torch.config import SimConfig
 from phyx_tpu_torch.joints import KIND_DISTANCE, KIND_REVOLUTE
+from phyx_tpu_torch.step import stats_dict
+from phyx_tpu_torch.step import step as _step
 from phyx_tpu_torch.types import State
 
 
@@ -46,6 +48,10 @@ class SceneBuilder:
             restitution=float(restitution),
             vel=np.asarray(velocity, np.float64), angvel=float(angvel)))
         return len(self._rows) - 1
+
+    @property
+    def num_bodies(self) -> int:
+        return len(self._rows)
 
     def add_revolute_joint(self, b1: int, b2: int, world_anchor) -> int:
         """Pin two bodies together at a world-space point.  Local anchors
@@ -114,3 +120,32 @@ class SceneBuilder:
             ("restitution", "restitution", np.float32)))
         b.active[:k] = True
         return st
+
+
+class World:
+    """Owns a State and steps it.  Without ``state`` it starts from an
+    empty one on ``device`` (the card unless the caller names another)."""
+
+    def __init__(self, cfg: SimConfig, state: Optional[State] = None,
+                 device="cuda"):
+        self.cfg = cfg
+        self.state = state if state is not None else State.zeros(
+            cfg.max_bodies, cfg.max_pairs, device=device)
+
+    def step(self, n: int = 1) -> "World":
+        for _ in range(n):
+            self.state = _step(self.state, self.cfg)
+        return self
+
+    # host views: each waits for the device (for tests and demos, not the
+    # hot loop)
+    def positions(self, k: Optional[int] = None) -> np.ndarray:
+        p = self.state.bodies.pos.cpu().numpy()
+        return p if k is None else p[:k]
+
+    def stats(self) -> dict:
+        s = stats_dict(self.state.stats)
+        return {key: s[key] for key in (
+            "num_pairs", "num_contacts", "pair_overflow", "max_penetration",
+            "residual", "ovf_window", "ovf_slots", "ovf_drop", "ovf_band",
+            "ovf_slab")}

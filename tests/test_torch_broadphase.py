@@ -13,10 +13,12 @@ from phyx_tpu import scenes as jscenes
 from phyx_tpu.broadphase import broadphase as jax_broadphase
 from phyx_tpu.broadphase import lex_sort_pairs as jax_lex_sort_pairs
 from phyx_tpu.config import SimConfig as JaxConfig
+from phyx_tpu.step import step as jax_step
 from phyx_tpu_torch.broadphase import EMPTY, broadphase, lex_sort_pairs
 from phyx_tpu_torch.config import SimConfig
-from phyx_tpu_torch.convert import state_from_numpy
+from phyx_tpu_torch.convert import state_from_numpy, state_to_numpy
 from phyx_tpu_torch.step import step
+from test_torch_step import leaves
 
 torch.set_num_threads(1)
 
@@ -97,17 +99,28 @@ def test_n2_drop_keeps_lowest_pairs():
 
 def test_unported_paths_raise():
     """The sweep-emission configs (K7 at this capacity): their broadphase
-    equals the reference's under every backend, and the one whose solve is
-    not ported, ``sap_kernel`` under ``xla`` (the colored solve, M10),
-    raises at its step."""
+    equals the reference's under every backend, and ``sap_kernel`` under
+    ``xla`` (the colored solve), which raised before the colored solve was
+    ported, steps as the reference does: integers exact, floats within
+    1e-4."""
     for name, backend in (("sap_kernel", "xla"), ("sap_kernel", "pallas"),
                           ("sap", "pallas")):
         cfg_kw = dict(BASE, broadphase=name, solver_backend=backend)
         counts = compare(cfg_kw, 200, 0)
         assert counts["num"] > 100 and counts["overflow"] == 0
-    st = state_from_numpy(jittered_pile(cfg_kw, 200, 0), "cpu")
-    with pytest.raises(NotImplementedError, match="M10"):
-        step(st, SimConfig(**dict(cfg_kw, solver_backend="xla")))
+    cfg_kw = dict(cfg_kw, solver_backend="xla")
+    tree = jittered_pile(cfg_kw, 200, 0)
+    ours = leaves(state_to_numpy(step(state_from_numpy(tree, "cpu"),
+                                      SimConfig(**cfg_kw))))
+    ref = leaves(jax.tree_util.tree_map(np.asarray, jax_step(
+        jax.tree_util.tree_map(jnp.asarray, tree), JaxConfig(**cfg_kw))))
+    assert ref["stats.num_contacts"] > 100
+    for k, a in ref.items():
+        if a.dtype.kind in "biu":
+            np.testing.assert_array_equal(a, ours[k], k)
+        else:
+            np.testing.assert_allclose(a, ours[k], atol=1e-4, rtol=0,
+                                       err_msg=k)
 
 
 @pytest.mark.parametrize("n_cap", [256, 1 << 16])

@@ -89,7 +89,8 @@ def test_convert_round_trips():
 def test_import_leaves_jax_out():
     code = ("import sys\n"
             "import phyx_tpu_torch, phyx_tpu_torch.step, "
-            "phyx_tpu_torch.convert, phyx_tpu_torch.scenes\n"
+            "phyx_tpu_torch.convert, phyx_tpu_torch.scenes, "
+            "phyx_tpu_torch.coloring, phyx_tpu_torch.world\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'phyx_tpu' "
             "or m.startswith('phyx_tpu.'))\n"

@@ -13,10 +13,12 @@ from phyx_tpu import scenes as jscenes
 from phyx_tpu.config import SimConfig as JaxConfig
 from phyx_tpu.step import step as jax_step
 from phyx_tpu.world import SceneBuilder as JaxSceneBuilder
+from phyx_tpu.world import World as JaxWorld
 from phyx_tpu_torch import SceneBuilder, scenes
 from phyx_tpu_torch.config import SimConfig
 from phyx_tpu_torch.convert import state_from_numpy, state_to_numpy
 from phyx_tpu_torch.step import rollout, step
+from phyx_tpu_torch.world import World
 
 torch.set_num_threads(1)
 
@@ -127,23 +129,34 @@ def test_rollout_equals_steps():
         np.testing.assert_array_equal(a[k], b[k], k)
 
 
-@pytest.mark.parametrize("backend,roadmap", [("xla", "M10")])
-def test_unported_backends_raise(backend, roadmap):
-    cfg = SimConfig(**dict(PILE, solver_backend=backend))
-    st = scenes.pile(cfg, 10, seed=0).build("cpu")
-    with pytest.raises(NotImplementedError, match=roadmap):
-        step(st, cfg)
-
-
 def test_joints_raise():
-    """A jointed scene still raises on the backends not ported yet, and a
-    builder past ``max_joints`` raises."""
-    cfg = SimConfig(**dict(JOINTED, solver_backend="xla"))
-    st = scenes.chain(cfg, 4).build("cpu")
-    with pytest.raises(NotImplementedError, match="M10"):
-        step(st, cfg)
+    """A builder past ``max_joints`` raises."""
     with pytest.raises(ValueError, match="max_joints"):
         scenes.chain(SimConfig(**dict(JOINTED, max_joints=3)), 4)
+
+
+def test_world_default_config_matches_jax_world():
+    """``World`` on a default ``SimConfig()`` (the colored solve,
+    ``broadphase="sap"``): three frames of a 40-box pile against the
+    reference's ``World``, positions within 1e-4, stats' integers equal."""
+    cfg, jcfg = SimConfig(), JaxConfig()
+    st = scenes.pile(cfg, 40, seed=5).build("cpu")
+    ours = World(cfg, st)
+    ref = JaxWorld(jcfg, jscenes.pile(jcfg, 40, seed=5).build())
+    ours.step(3)
+    ref.step(3)
+    np.testing.assert_allclose(ours.positions(41), ref.positions(41),
+                               atol=1e-4, rtol=0)
+    got, want = ours.stats(), ref.stats()
+    assert got.keys() == want.keys() and want["num_contacts"] > 20
+    for k, v in want.items():
+        if isinstance(v, int):
+            assert got[k] == v, k
+        else:
+            assert abs(got[k] - v) <= 1e-4, k
+    empty = World(cfg, device="cpu").step()
+    assert empty.stats()["num_pairs"] == 0
+    assert empty.state.bodies.pos.device.type == "cpu"
 
 
 @pytest.mark.parametrize("scene,before,min_contacts", [

@@ -1,7 +1,7 @@
 """The port's tiled tier against the JAX package: the tiling helpers, the
 grid's slab-major finalize, the plain versions of K3 and K5 against the JAX
 interpret-mode kernels on the same packed inputs, the tier rule and the
-colored-fallback raise."""
+colored fallback."""
 
 import functools
 
@@ -20,15 +20,17 @@ from phyx_tpu.kernels.contact_solver_tiled import \
     solve_contacts_tiled as jax_tiled
 from phyx_tpu.kernels.contact_solver_tiled2 import \
     solve_contacts_tiled2 as jax_tiled2
-from phyx_tpu_torch import scenes, tiling
+from phyx_tpu.step import step as jax_step
+from phyx_tpu_torch import tiling
 from phyx_tpu_torch.broadphase import broadphase_sap_grid
 from phyx_tpu_torch.config import SimConfig
-from phyx_tpu_torch.convert import state_from_numpy
+from phyx_tpu_torch.convert import state_from_numpy, state_to_numpy
 from phyx_tpu_torch.kernels import contact_solver
 from phyx_tpu_torch.kernels.contact_solver_tiled import (
     solve_contacts_tiled, solve_contacts_tiled2, solve_contacts_tiled2_plain,
     solve_contacts_tiled_plain)
 from phyx_tpu_torch.step import solve_inputs, step
+from test_torch_step import leaves
 
 torch.set_num_threads(1)
 
@@ -106,8 +108,9 @@ def test_tier_rule(name, kw, tiled, fused):
 def test_colored_fallback_raises():
     """Above the reference's fused budget with contact slots that are not
     whole 1024-slot blocks, the reference solves with its colored XLA
-    sweeps (phyx_tpu/step.py:165-177); the port raises, naming M10,
-    instead of computing another function."""
+    sweeps (phyx_tpu/step.py:165-177).  The port raised there until the
+    colored solve was ported; now it takes that solve too: three frames
+    re-synced from the reference's, integers exact, floats within 1e-4."""
     kw = dict(max_bodies=1024, max_pairs=5400, broadphase="sap_grid",
               sap_window=32, solver_backend="pallas")
     n, c = 1024, 2 * 5400
@@ -116,9 +119,18 @@ def test_colored_fallback_raises():
     assert c % BLK and not jtiling.resolve_tiled(JaxConfig(**kw), n, c)
     cfg = SimConfig(**kw)
     assert tiling.colored_fallback(cfg, n, c, 0)
-    st = scenes.pile(cfg, 20, seed=0).build("cpu")
-    with pytest.raises(NotImplementedError, match="M10"):
-        step(st, cfg)
+    jcfg = JaxConfig(**kw)
+    jst = jscenes.pile(jcfg, 20, seed=0).build()
+    for frame in range(3):
+        ours = leaves(state_to_numpy(step(state_from_numpy(
+            jax.tree_util.tree_map(np.asarray, jst), "cpu"), cfg)))
+        jst = jax_step(jst, jcfg)
+        for k, a in leaves(jax.tree_util.tree_map(np.asarray, jst)).items():
+            if a.dtype.kind in "biu":
+                np.testing.assert_array_equal(a, ours[k], f"{frame} {k}")
+            else:
+                np.testing.assert_allclose(a, ours[k], atol=1e-4, rtol=0,
+                                           err_msg=f"{frame} {k}")
 
 
 def pile_state(kw, boxes, seed):
