@@ -58,16 +58,27 @@ Phases; any failure raises and the script exits non-zero:
              through K3 and through K5, an 8-env banded mega-scene through
              K4 + K3 and through K4 + K5, a 200-box pile under
              ``sap_kernel`` at cap 512 through K7 + K2, and an 8-env
-             mega-scene under ``sap`` at cap 1024 through K6 + K1.
+             mega-scene under ``sap`` at cap 1024 through K6 + K1.  On
+             each of these scenes, its frame captured as a CUDA graph
+             (``rollout``), then two replays of it against two uncaptured
+             steps: every State tensor equal to the bit, the launch counts
+             equal.
 4. pile10k — the 10k-box pile at the bench's settings (cap 16,384 bodies,
              32,256 pairs, sap_grid window 192 / 8 hits, 10+6 passes)
-             through ``rollout``: a 200-frame settle (the bench's 300,
-             cut for the script's time) in which no step may wait for the
-             device, a discarded warm-up window of n frames (in every
+             through ``rollout``, a CUDA graph replay (one uncaptured
+             frame, the capture, replays): a 200-frame settle (the bench's
+             300, cut for the script's time) in which no step may wait for
+             the device, a discarded warm-up window of n frames (in every
              scene), then frames timed by the slope t(2n) - t(n) over n,
-             each launching K1 once and no other
-             kernel; finite state, contacts present, bench.py's quality bar
-             met; the device time of the step's stages (CUDA events); K1
+             each launching K1 once and no other kernel (the replays'
+             launches counted from the captured frame's); in the scenes
+             timed "both ways", then the same uncaptured, a loop of
+             ``step``, and the host's ms a frame to queue each way; in
+             every scene two replays against two uncaptured steps, every
+             State tensor equal to the bit; finite state, contacts
+             present, bench.py's quality bar met; the device time of the
+             step's stages (CUDA events) and the device's idle share of
+             each way's frame; K1
              against its plain version at the frame's shapes on fewer
              passes, gates off and on, and both timed; K1's pre-pass
              against ``visit_levels`` (levels, offsets, each level's rows),
@@ -83,7 +94,8 @@ Phases; any failure raises and the script exits non-zero:
              version and is timed there.
 5. chain   — the 1000-link revolute chain at bench row C's settings (cap
              1024 bodies, 2048 pairs, 1024 joints, the same broadphase and
-             passes): 300-frame settle without host waits, slope timing,
+             passes): 300-frame settle without host waits, slope timing
+             both ways,
              each frame launching K2 once and no other kernel; bench.py's
              joint bar (overflow 0, residual <= 1e-2), finite state; stage
              times; K2 against the plain version at the frame's shapes on
@@ -93,9 +105,10 @@ Phases; any failure raises and the script exits non-zero:
              its place in shared memory (ring depth and bytes, where the
              accumulators sit).
 6. pile1k  — the 1k pile (cap 1024, 3584 pairs): 400-frame settle, slope
-             timing, K2 once a frame, the 0.6 penetration bar; stage times;
-             K2 against the plain version at the frame's shapes, gates off
-             and on; K1 == K2 and K2's levels, as at the chain frame.
+             timing both ways, K2 once a frame, the 0.6 penetration bar;
+             stage times; K2 against the plain version at the frame's
+             shapes, gates off and on; K1 == K2 and K2's levels, as at the
+             chain frame.
 7. pile20k — the 20k pile (cap 32,768, 64,000 pairs: the tiled tier,
              3 slabs of the default 16,384-row stride): the bench's
              300-frame settle without host waits, slope timing, K3 once a
@@ -127,54 +140,71 @@ Phases; any failure raises and the script exits non-zero:
              levels plain version on all passes there (the serial one
              would take ~10 minutes), its pre-pass and placements checked
              and timed as at the 20k frame.
-9. envs64  — bench row E at bench.py's own default of 64 envs x 256 boxes
-             (cap 17,408, 52,736 pairs): ``"sap"`` within the reference's
-             sweep budget takes K6, the capacity the streamed solve K1:
-             240-frame settle without host waits, slope timing, K6 and K1
-             once a frame each and no other kernel; every overflow counter
-             0, penetration ratio <= 0.2, finite state; env-steps/s beside
-             the 1024-env scene's (null, with a line saying so, where the
-             slope reads below the device stages' sum); stage times; K6 against its plain version
-             at the settled frame and at its buffer cut to half the frame's
-             pairs, and timed (device time behind a sleep kernel; with
-             ``--parent``, DIR's K6 beside it as K4's); K1 against its
-             plain version (warm + 1 + 1 passes)
-             and timed on all passes, and its level checks and its
-             placement in device memory as at the 10k frame.
+9. envs64  — bench row E at bench.py's own default of 64 envs x 256 boxes (cap
+             17,408, 52,736 pairs): ``"sap"`` within the reference's sweep
+             budget takes K6, the capacity the streamed solve K1: 240-frame
+             settle without host waits, slope timing both ways, K6 and K1 once
+             a frame each and no other kernel; every overflow counter 0,
+             penetration ratio <= 0.2, finite state; env-steps/s beside the
+             1024-env scene's (the uncaptured rate null, with a line saying so,
+             where its slope reads below the device stages' sum); stage times;
+             K6 against its plain version at the settled frame and at its
+             buffer cut to half the frame's pairs, and timed (device time
+             behind a sleep kernel; with ``--parent``, DIR's K6 beside it as
+             K4's); K1 against its plain version (warm + 1 + 1 passes) and
+             timed on all passes, and its level checks and its placement in
+             device memory as at the 10k frame.
 10. pile500 — a 500-box pile under ``broadphase="sap"`` at bench.py's
              build() settings (cap 512, 2,048 pairs): K7, the capacity not
-             in whole chunks, and K2: 400-frame settle, slope timing, K7 and
+             in whole chunks, and K2: 400-frame settle, slope timing both
+             ways, K7 and
              K2 once a frame, the 0.6 penetration bar; stage times; K7
              against its plain version at the settled frame and at a
              buffer cut to half its pairs (``ovf`` counted), with its
              per-row counts in device memory (the placement past 51,200
              rows), and timed; K2 as at the chain frame.
-11. colored — the colored solve (``solver_backend="xla"``, torch ops, no
-             kernel) with bench.py's build() policy otherwise: the 10k
-             pile (the 200-frame settle of phase 4) and the 1000-link
-             chain (the bench's 300), settled without host waits, slope
-             timing with no kernel of K1-K7 launched, bench.py's bars
-             (pile: penetration ratio <= 0.6, ovf 0; chain: residual <=
-             1e-2, read at bench row C's frame 600, run on to without
-             host waits); the stages by CUDA events with no sleep ahead (a
-             colored frame queues more kernels than the launch queue
-             holds) and the host's enqueue; at the settled frame the
-             colors on the card equal to the CPU's, ``check_coloring`` 0,
-             the final class's share, the colored solve within
-             ``COLORED_ATOL`` of the same solve on the CPU and, run twice,
-             equal to the bit, the whole step twice equal to the bit (the
-             pile frame also at 4 colors, a full final class); one
-             colored-fallback ``"pallas"`` frame card vs CPU.  Then one
-             call each of K4, K6 and K7 at their settled frames in one
-             torch.profiler session: each launches one CUDA kernel; the
-             same session counts and times the kernels of each colored
-             frame's three stages and of its solve's parts (coloring, warm
-             start, velocity passes, displacement passes): device busy
-             ms, idle share.
+11. avalanche — bench row D (``--scene avalanche --autotune``) at 20,000
+             boxes (cap 32,768, 160,256 pairs: the tiled tier, K3) with
+             the bench's 300-frame settle, and at 100,000 (cap 131,072,
+             800,256 pairs) with its settle cut to ``SETTLE_100K`` frames
+             (the bench's 1,000 run as their own chip call:
+             ``phase_avalanche``): ``rollout_autotuned`` in chunks of 10,
+             each retune printed, every retune keeping the tier, K3 once a
+             frame, the captured graph of each configuration left freed;
+             slope timing both ways, bench.py's bar (penetration ratio <=
+             2.0, every ``ovf_*`` 0), stage times, two replays against two
+             steps, the policies' host time, and K3 at the settled frame
+             against its levels plain version (warm + 1 velocity pass),
+             its pre-pass, levels a pass, timed.
+12. colored — the colored solve (``solver_backend="xla"``, torch ops, no
+             kernel) with bench.py's build() policy otherwise: the 10k pile
+             (the 200-frame settle of phase 4) and the 1000-link chain (the
+             bench's 300), settled without host waits, slope timing both ways
+             with no kernel of K1-K7 launched, the pile's penetration ratio
+             read frame by frame from frame 201 to 330, bench.py's bars (pile:
+             penetration ratio <= 0.6, ovf 0; chain: residual <= 1e-2, read at
+             bench row C's frame 600, run on to without host waits); the
+             stages by CUDA events with no sleep ahead (a colored frame queues
+             more kernels than the launch queue holds) and the host's enqueue;
+             at the settled frame the colors on the card equal to the CPU's,
+             ``check_coloring`` 0, the final class's share, the colored solve
+             within ``COLORED_ATOL`` of the same solve on the CPU and, run
+             twice, equal to the bit, the whole step twice equal to the bit
+             (the pile frame also at 4 colors, a full final class); one
+             colored-fallback ``"pallas"`` frame card vs CPU. Then one call
+             each of K4, K6 and K7 at their settled frames in one
+             torch.profiler session: each launches one CUDA kernel; the same
+             session counts and times the kernels of each colored frame's
+             three stages and of its solve's parts (coloring, warm start,
+             velocity passes, displacement passes): device busy ms, idle
+             share. The same session also counts and times one uncaptured step
+             of every timed scene: busy ms and idle share of each way's frame.
 
-Prints a JSON line per main-path phase (physics, rate, stage times), a
-JSON line of the kernels, the card's ``nvidia-smi`` name and power limit,
-and last ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+Prints a JSON line per main-path phase (physics, rates, stage times), a
+JSON line of the colored frames' breakdown, one of every timed scene both
+ways (``frames``), one of the kernels, the card's ``nvidia-smi`` name and
+power limit, and last ``{"ok": true, "device": {...}}``.  Imports nothing
+of JAX.
 """
 
 from __future__ import annotations
@@ -201,16 +231,8 @@ def _sync():
 
 def _wrappers() -> dict:
     """Every kernel's wrapper, by name."""
-    from phyx_tpu_torch.kernels.contact_solver import solve_contacts_fused
-    from phyx_tpu_torch.kernels.contact_solver_streamed import \
-        solve_contacts_streamed
-    from phyx_tpu_torch.kernels.contact_solver_tiled import (
-        solve_contacts_tiled, solve_contacts_tiled2)
-    from phyx_tpu_torch.kernels.sweep import sweep_emit, sweep_emit_v2
-    from phyx_tpu_torch.kernels.sweep_tiled import sweep_emit_tiled
-    return dict(K1=solve_contacts_streamed, K2=solve_contacts_fused,
-                K3=solve_contacts_tiled2, K4=sweep_emit_tiled,
-                K5=solve_contacts_tiled, K6=sweep_emit_v2, K7=sweep_emit)
+    from phyx_tpu_torch.kernels import wrappers
+    return dict(zip(("K1", "K2", "K3", "K4", "K5", "K6", "K7"), wrappers()))
 
 
 def _plains() -> dict:
@@ -1088,7 +1110,7 @@ def phase_step_parity() -> float:
     from phyx_tpu_torch import SimConfig, scenes
     from phyx_tpu_torch.convert import state_from_numpy, state_to_numpy
     from phyx_tpu_torch.parallel.envs import concat_envs
-    from phyx_tpu_torch.step import rollout, step
+    from phyx_tpu_torch.step import release_graphs, rollout, step
     pile = SimConfig(max_bodies=64, max_pairs=256, broadphase="sap_grid",
                      sap_window=32, solver_backend="pallas")
     jointed = SimConfig(max_bodies=32, max_pairs=128, max_joints=32,
@@ -1168,7 +1190,53 @@ def phase_step_parity() -> float:
                                 f"off by {d}")
         print(f"# step parity: {what}, 10 frames, card vs CPU: integers "
               f"equal, max float diff so far {worst}", flush=True)
+        # the frame captured (a warm-up frame and 2 replays), then two
+        # replays of it against two uncaptured steps
+        card = rollout(state_from_numpy(state_to_numpy(st), "cuda"), cfg, 3)
+        _replay_equals_steps(card, cfg, what)
+        release_graphs()
     return worst
+
+
+def _bits(t):
+    """A tensor's bits: float32 as int32, so that -0.0 and NaN compare
+    as what they are."""
+    import torch
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _replay_equals_steps(st, cfg, what: str) -> dict:
+    """Two graph replays of ``cfg``'s captured frame (``rollout``, which
+    must hold it already: the call replays both frames) against two
+    uncaptured steps from the same state: every State tensor equal to the
+    bit, the launch counts equal.  Returns the graph's record
+    (``graph_info``) and the launches a frame."""
+    import dataclasses
+    import torch
+    from phyx_tpu_torch.step import _GRAPHS, graph_info, rollout, step
+    if (cfg, st.bodies.pos.device) not in _GRAPHS:
+        raise AssertionError(f"{what}: no captured frame to replay")
+    _reset_counts()
+    replayed = rollout(st, cfg, 2)
+    by_replay = _counts()
+    _reset_counts()
+    stepped = step(step(st, cfg), cfg)
+    by_step = _counts()
+    if by_replay != by_step:
+        raise AssertionError(f"{what}: launches {by_replay} in two replays, "
+                             f"{by_step} in two steps")
+    for rec in dataclasses.fields(stepped):
+        a, b = getattr(replayed, rec.name), getattr(stepped, rec.name)
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            if not torch.equal(_bits(x), _bits(y)):
+                raise AssertionError(f"{what}: {rec.name}.{f.name} after two "
+                                     "replays differs from two steps")
+    info = next(g for g in graph_info() if g["cfg"] == cfg)
+    print(f"# graph replay: {what}: two replays == two uncaptured steps, "
+          f"every State tensor to the bit, launches {by_step}; the graph's "
+          f"pool {info['pool_bytes'] / 2**20:.1f} MiB", flush=True)
+    return dict(pool_bytes=info["pool_bytes"], launches_two_frames=by_step)
 
 
 def _kernel_ms(wrapper, args, reps: int) -> float:
@@ -1270,21 +1338,32 @@ def _stage_ms(st, cfg, frames: int, sleep_cycles: int = 200_000_000):
     return st, out
 
 
-def _checked_rate(out: dict, stages: dict) -> None:
-    """E-64's rate: its frame takes at least its device stages' time
-    (``_stage_ms``); where the slope reads less, it is no rate: that is
-    printed on its own line and the steps/s recorded as null (``rate_ok``
-    False).  (E-64 is host-bound, and its slope read below its device
-    stages in earlier runs; a device-bound scene's slope and its stage sum
-    differ either way by the two timings' own spread.)"""
+def _checked_rate(out: dict, stages: dict, null_below: bool = False
+                  ) -> None:
+    """The device stages' sum and the host's enqueue of an uncaptured
+    frame (``_stage_ms``) beside the slopes.  With ``null_below`` (E-64):
+    the uncaptured frame takes at least its device stages' time; where its
+    slope reads less it is no rate: that is printed on its own line and
+    its steps/s recorded as null (``rate_ok`` False).  (E-64's uncaptured
+    frame is host-bound, and its slope read below its device stages in
+    earlier runs; a device-bound scene's slope and its stage sum differ
+    either way by the two timings' own spread.  A replayed frame runs the
+    same kernels from a graph, with less device time between them than
+    launches on a stream leave, so it may read below the stages' sum and
+    is not nulled.)"""
     device = sum(stages[k] for k in ("contact_stage", "solve_stage",
                                      "finish_stage"))
-    out.update(device_stages_ms=device, rate_ok=out["frame_ms"] >= device)
+    out.update(device_stages_ms=device,
+               host_enqueue_ms=stages["host_enqueue"])
+    if not null_below:
+        return
+    out["rate_ok"] = out["frame_ms_uncaptured"] >= device
     if not out["rate_ok"]:
-        print(f"# {out['scene']} ({out['boxes']} boxes): the slope reads "
-              f"{out['frame_ms']:.3f} ms a frame, below its {device:.3f} ms "
-              "of device stages: no rate recorded", flush=True)
-        out["steps_per_s"] = None
+        print(f"# {out['scene']} ({out['boxes']} boxes): the uncaptured "
+              f"slope reads {out['frame_ms_uncaptured']:.3f} ms a frame, "
+              f"below its {device:.3f} ms of device stages: no rate "
+              "recorded", flush=True)
+        out["steps_per_s_uncaptured"] = None
 
 
 def _per_env(out: dict, envs: int):
@@ -1300,7 +1379,8 @@ def _bench_cfg(scene: str, boxes: int):
     while cap < boxes + 8:
         cap *= 2
     joint_scene = scene in ("chain", "bridge", "net")
-    pairs_per_box = 2 if joint_scene else 3.2
+    pairs_per_box = (2 if joint_scene
+                     else 8 if scene == "avalanche" else 3.2)
     return SimConfig(max_bodies=cap,
                      max_pairs=max(1024, (int(boxes * pairs_per_box) + 511)
                                    // 512 * 512),
@@ -1310,20 +1390,21 @@ def _bench_cfg(scene: str, boxes: int):
 
 
 def _drive(scene: str, boxes: int, settle: int, kernels: tuple, card: str,
-           built=None):
+           built=None, both_ways: bool = False, after_settle=None):
     """Builds the scene on the card (``built`` = (cfg, state), else
-    bench.py's build() of ``scene``), settles it with every synchronising
-    call an error, runs a warm-up window of n frames, then times frames by
-    the slope t(2n) - t(n) with the launch counts zeroed just before and
-    read just after: each kernel named
-    in ``kernels`` must launch once a frame, every other never.  Returns
-    (state, cfg, dict of the run's numbers)."""
+    bench.py's build() of ``scene``), frees every captured frame of the
+    scenes before, settles it through ``rollout`` (a graph replay: one
+    uncaptured frame, the capture, replays) with every synchronising call
+    an error, calls ``after_settle(state, cfg)`` where given (its result
+    goes into the record as ``after_settle``), then times frames
+    (``_timed``).  Returns (state, cfg, dict of the run's numbers)."""
     import torch
     from phyx_tpu_torch import scenes
-    from phyx_tpu_torch.step import rollout, stats_dict
+    from phyx_tpu_torch.step import release_graphs, rollout
+    release_graphs()
     if built is None:
         cfg = _bench_cfg(scene, boxes)
-        kw = {"seed": 0} if scene == "pile" else {}
+        kw = {"seed": 0} if scene in ("pile", "avalanche") else {}
         st = getattr(scenes, scene)(cfg, boxes, **kw).build()
     else:
         cfg, st = built
@@ -1337,45 +1418,171 @@ def _drive(scene: str, boxes: int, settle: int, kernels: tuple, card: str,
         torch.cuda.set_sync_debug_mode("default")
     _sync()
     settle_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    st = rollout(st, cfg, 2)
-    _sync()
-    frame_s = (time.perf_counter() - t0) / 2
-    # about 10 s for the 3n frames, 4 <= n <= 100
-    n = max(4, min(100, int(10.0 / max(frame_s, 1e-3) / 3)))
-    # a warm-up window of n frames, discarded: the first window after the
-    # probe can carry a one-off cost, which would lower the slope
-    st = rollout(st, cfg, n)
-    _sync()
+    extra = {} if after_settle is None else dict(
+        after_settle=after_settle(st, cfg))
+    st, out = _timed(st, cfg, kernels, both_ways)
+    out = dict(scene=scene, boxes=boxes, **out, settle_s=settle_s,
+               frames_settled=settle, card=card, **extra)
+    out["frames_total"] += settle
+    return st, cfg, out
 
+
+def _step_loop(st, cfg, n: int):
+    """``n`` uncaptured frames: a loop of ``step``."""
+    from phyx_tpu_torch.step import step
+    for _ in range(n):
+        st = step(st, cfg)
+    return st
+
+
+def _slope(run, st, cfg, n: int, kernels: tuple, what: str,
+           warmup: int = 0) -> tuple:
+    """Frames timed by the slope t(2n) - t(n) of ``run(st, cfg, frames)``
+    after a discarded warm-up window (``warmup`` frames, n by default: the
+    first window after the probe can carry a one-off cost, which would
+    lower the slope), the launch counts zeroed just before and read just
+    after: each kernel named in ``kernels`` must launch once a frame, every
+    other never.  Returns (state, ms a frame, dict of the windows' seconds
+    and the launches)."""
+    st = run(st, cfg, warmup or n)
+    _sync()
     _reset_counts()
     t0 = time.perf_counter()
-    st = rollout(st, cfg, n)
+    st = run(st, cfg, n)
     _sync()
     t1 = time.perf_counter()
-    st = rollout(st, cfg, 2 * n)
+    st = run(st, cfg, 2 * n)
     _sync()
     t2 = time.perf_counter()
     launches = _counts()
     if launches != {k: 3 * n if k in kernels else 0 for k in launches}:
-        raise AssertionError(f"{scene}: launches {launches} in {3 * n} "
+        raise AssertionError(f"{what}: launches {launches} in {3 * n} "
                              f"frames, expected {' and '.join(kernels)} "
                              "once a frame and no other kernel")
     per_frame = ((t2 - t1) - (t1 - t0)) / n
     if not per_frame > 0.0:
-        raise AssertionError(f"slope timing not positive: t(n)={t1 - t0}, "
-                             f"t(2n)={t2 - t1}")
-    stats = stats_dict(st.stats)
+        raise AssertionError(f"{what}: slope timing not positive: "
+                             f"t(n)={t1 - t0}, t(2n)={t2 - t1}")
+    return st, per_frame * 1e3, dict(t_n_s=t1 - t0, t_2n_s=t2 - t1,
+                                     launches=launches)
+
+
+# seconds of the 3n frames a slope times
+WINDOW_S = 4.0
+
+
+def _probe(run, st, cfg) -> tuple:
+    """Two frames of ``run``: (state, n for about ``WINDOW_S`` of 3n
+    frames, 4 <= n <= 100)."""
+    t0 = time.perf_counter()
+    st = run(st, cfg, 2)
+    _sync()
+    frame_s = (time.perf_counter() - t0) / 2
+    return st, max(4, min(100, int(WINDOW_S / max(frame_s, 1e-3) / 3)))
+
+
+def _host_ms_replayed(st, cfg, frames: int = 5) -> float:
+    """The host's ms a replayed frame: the wall clock of ``rollout``
+    queuing ``frames`` replays (and the copies of the state in and out)
+    from an idle device, over ``frames``."""
+    from phyx_tpu_torch.step import rollout
+    _sync()
+    t0 = time.perf_counter()
+    rollout(st, cfg, frames)
+    host = time.perf_counter() - t0
+    _sync()
+    return host * 1e3 / frames
+
+
+def _timed(st, cfg, kernels: tuple, both_ways: bool = False,
+           steps: int = 0):
+    """Frames of a settled scene timed through ``rollout`` (graph replays;
+    a frame not captured yet is captured in the first window) by
+    ``_slope``, n from a two-frame probe, or with ``steps`` as bench.py
+    times an ``--autotune`` row: n = ``steps`` after two windows of
+    ``steps`` and 2 ``steps``.  With ``both_ways``, from the same state,
+    then uncaptured (a loop of ``step``) in the same way, n from its own
+    probe (``steps`` where given: then both ways time the same frames).
+    The host's ms a replayed frame (``_host_ms_replayed``).  Checks the
+    replayed state finite and returns it: (state, dict of the numbers and
+    its stats)."""
+    import torch
+    from phyx_tpu_torch.step import rollout, stats_dict
+    st0, probe = st, 0
+    if steps:
+        n, warmup = steps, 3 * steps
+    else:
+        st, n = _probe(rollout, st, cfg)
+        probe, warmup = 2, n
+    st, ms, rec = _slope(rollout, st, cfg, n, kernels, "replayed", warmup)
+    out = dict(steps_per_s=1e3 / ms, frame_ms=ms,
+               host_ms_replayed=_host_ms_replayed(st, cfg),
+               frames_timed=3 * n, frames_total=probe + warmup + 3 * n,
+               **rec)
+    if both_ways:
+        if steps:
+            st_u = st0
+        else:
+            st_u, n = _probe(_step_loop, st0, cfg)
+        _, ms, rec = _slope(_step_loop, st_u, cfg, n, kernels, "uncaptured",
+                            3 * n if steps else n)
+        out.update(steps_per_s_uncaptured=1e3 / ms, frame_ms_uncaptured=ms,
+                   frames_timed_uncaptured=3 * n,
+                   **{f"{k}_uncaptured": v for k, v in rec.items()})
+        print(f"# both ways: {1e3 / out['frame_ms']:.2f} steps/s replayed "
+              f"({out['frame_ms']:.3f} ms a frame, host "
+              f"{out['host_ms_replayed']:.3f} ms a frame to queue), "
+              f"{1e3 / ms:.2f} uncaptured ({ms:.3f} ms)", flush=True)
     if not (torch.isfinite(st.bodies.pos).all().item()
             and torch.isfinite(st.bodies.vel).all().item()):
-        raise AssertionError(f"{scene}: non-finite body state")
-    out = dict(scene=scene, boxes=boxes, steps_per_s=1.0 / per_frame,
-               frame_ms=per_frame * 1e3, frames_timed=3 * n,
-               frames_total=settle + 2 + 4 * n, settle_s=settle_s,
-               t_n_s=t1 - t0, t_2n_s=t2 - t1, launches=launches,
-               max_bodies=cfg.max_bodies, max_pairs=cfg.max_pairs,
-               max_joints=cfg.max_joints, card=card, **stats)
-    return st, cfg, out
+        raise AssertionError("non-finite body state")
+    out.update(max_bodies=cfg.max_bodies, max_pairs=cfg.max_pairs,
+               max_joints=cfg.max_joints, **stats_dict(st.stats))
+    return st, out
+
+
+# each timed scene's record by label, and its settled state and
+# configuration: one uncaptured step of each goes into the profiler's
+# session (``_FRAMES``) for its device busy time (``_frames_summary``)
+_TIMED: dict = {}
+
+
+def _register(label: str, out: dict, st, cfg, stages: tuple = ()) -> None:
+    """Keeps the record ``out`` of a timed scene under ``label`` and hands
+    one uncaptured step of its state to the profiler's session, or where
+    ``stages`` names entries of ``_FRAMES`` that make up its frame (the
+    colored frames' three stages), takes its busy time from those."""
+    from phyx_tpu_torch.step import step
+    _TIMED[label] = (out, stages or (f"{label}: step",))
+    if not stages:
+        _FRAMES[f"{label}: step"] = (f"the settled {label}",
+                                     lambda: step(st, cfg))
+
+
+def _frames_summary(a_call: dict) -> dict:
+    """Each timed scene's frame both ways: steps/s and ms a frame
+    replayed and uncaptured, the host's ms a frame (replayed: queuing
+    replays; uncaptured: queuing a frame behind a sleep kernel, or for the
+    colored frames with none ahead), the CUDA kernels of one step and
+    their device busy ms (torch.profiler), and the device's idle share of
+    each way's frame, 1 - busy / frame."""
+    out = {}
+    for label, (rec, keys) in _TIMED.items():
+        busy = sum(a_call[k]["busy_ms"] for k in keys)
+        row = dict(steps_per_s=rec["steps_per_s"], frame_ms=rec["frame_ms"],
+                   host_ms_replayed=rec["host_ms_replayed"],
+                   kernels_a_frame=sum(a_call[k]["kernels"] for k in keys),
+                   device_busy_ms=busy,
+                   idle_share=1.0 - busy / rec["frame_ms"])
+        if "frame_ms_uncaptured" in rec:
+            row.update(
+                steps_per_s_uncaptured=rec["steps_per_s_uncaptured"],
+                frame_ms_uncaptured=rec["frame_ms_uncaptured"],
+                host_ms_uncaptured=rec["host_enqueue_ms"],
+                idle_share_uncaptured=1.0 - busy
+                / rec["frame_ms_uncaptured"])
+        out[label] = row
+    return out
 
 
 def _kernel_at_frame(st, cfg, wrapper, name) -> dict:
@@ -1675,11 +1882,15 @@ def phase_pile10k(card: str) -> dict:
                              f"{out['pair_overflow']}, penetration ratio "
                              f"{pen_ratio}")
     st, stages = _stage_ms(st, cfg, frames=3)
+    _checked_rate(out, stages)
+    replay = _replay_equals_steps(st, cfg, "the settled 10k pile")
+    _register("pile 10000", out, st, cfg)
     k = _kernel_at_frame(st, cfg, w["K1"], "K1")
     lv = _k1_level_checks(k, "the settled 10k frame")
     k6 = _sap_equals_grid(st, cfg)
     out.update(metric="steps/s @ 10000-box pile (port, H100 path)",
                penetration_ratio=pen_ratio, stage_device_ms=stages,
+               graph_replay=replay,
                solve_ms_full=k["ms_full_solve"],
                solve_share_of_frame=k["ms_full_solve"] / out["frame_ms"],
                k1_levels=lv, k6_device_ms_sap=k6["ms"],
@@ -1740,17 +1951,22 @@ def _k2_at_frame(st, cfg, what: str) -> dict:
 def phase_chain(card: str) -> dict:
     """Bench row C: the 1000-link chain, through K2; K1 on the same input
     must equal it."""
-    st, cfg, out = _drive("chain", 1000, 300, ("K2",), card)
+    st, cfg, out = _drive("chain", 1000, 300, ("K2",), card,
+                          both_ways=True)
     # bench.py's joint bar: no overflow, joint residual <= 1e-2
     if out["pair_overflow"] != 0 or not out["residual"] <= 1e-2:
         raise AssertionError(f"chain bar missed: overflow "
                              f"{out['pair_overflow']}, residual "
                              f"{out['residual']}")
     st, stages = _stage_ms(st, cfg, frames=3)
+    _checked_rate(out, stages)
+    replay = _replay_equals_steps(st, cfg, "the settled chain")
+    _register("chain 1000", out, st, cfg)
     k = _k2_at_frame(st, cfg, "the chain frame")
     k1_ms = k["k1_ms_full_solve"]
     out.update(metric="steps/s @ 1000-link chain (port, H100 path)",
-               stage_device_ms=stages, solve_ms_full=k["ms_full_solve"],
+               stage_device_ms=stages, graph_replay=replay,
+               solve_ms_full=k["ms_full_solve"],
                k1_ms_full_solve=k1_ms,
                k2_ns_per_visit=k["ns_per_visit"],
                k1_ns_per_visit=k1_ms * 1e6 / k["visits_full_solve"],
@@ -1762,7 +1978,8 @@ def phase_chain(card: str) -> dict:
 
 def phase_pile1k(card: str) -> dict:
     """Bench row B': the 1k pile, settled 400 frames, through K2."""
-    st, cfg, out = _drive("pile", 1000, 400, ("K2",), card)
+    st, cfg, out = _drive("pile", 1000, 400, ("K2",), card,
+                          both_ways=True)
     pen_ratio = out["max_penetration"] / 0.5
     if (out["num_contacts"] <= 0 or out["pair_overflow"] != 0
             or not pen_ratio <= 0.6):
@@ -1771,9 +1988,13 @@ def phase_pile1k(card: str) -> dict:
                              f"{out['pair_overflow']}, penetration ratio "
                              f"{pen_ratio}")
     st, stages = _stage_ms(st, cfg, frames=3)
+    _checked_rate(out, stages)
+    replay = _replay_equals_steps(st, cfg, "the settled 1k pile")
+    _register("pile 1000", out, st, cfg)
     k = _k2_at_frame(st, cfg, "the 1k pile frame")
     out.update(metric="steps/s @ 1000-box pile (port, H100 path)",
                penetration_ratio=pen_ratio, stage_device_ms=stages,
+               graph_replay=replay,
                solve_ms_full=k["ms_full_solve"],
                k1_ms_full_solve=k["k1_ms_full_solve"],
                k2_ns_per_visit=k["ns_per_visit"],
@@ -1807,6 +2028,9 @@ def phase_pile20k(card: str) -> dict:
                              f"{out['num_contacts']}, overflow {ovf}, "
                              f"penetration ratio {pen_ratio}")
     st, stages = _stage_ms(st, cfg, frames=3)
+    _checked_rate(out, stages)
+    replay = _replay_equals_steps(st, cfg, "the settled 20k pile")
+    _register("pile 20000", out, st, cfg)
 
     # K3 against the serial plain version at the frame's shapes: the warm
     # pass and one velocity pass (it launches one op per scalar operation)
@@ -1866,6 +2090,7 @@ def phase_pile20k(card: str) -> dict:
 
     out.update(metric="steps/s @ 20000-box pile (port, H100 path)",
                penetration_ratio=pen_ratio, stage_device_ms=stages,
+               graph_replay=replay,
                solve_ms_full=k3["ms_full_solve"],
                solve_share_of_frame=k3["ms_full_solve"] / out["frame_ms"],
                k3_walked_slots=walked, k3_levels=k3["levels"],
@@ -1969,6 +2194,9 @@ def phase_envs1024(card: str) -> dict:
                           built=_envs_scene(ENVS, 256))
     pen_ratio = _envs_bar(out, ENVS)
     st, stages = _stage_ms(st, cfg, frames=3)
+    _checked_rate(out, stages)
+    replay = _replay_equals_steps(st, cfg, f"the settled {ENVS}-env frame")
+    _register(f"envs {ENVS}", out, st, cfg)
     lo, hi = compute_aabbs(st.bodies)
     args = _sap_tiled_sort_stage(st.bodies, cfg, lo, hi)[0]
     err, counts, plain_ms = _compare_sweep(args)
@@ -1993,6 +2221,7 @@ def phase_envs1024(card: str) -> dict:
                "path)", env_steps_per_s=out["steps_per_s"] * ENVS,
                envs=ENVS, contacts_per_env=out["num_contacts"] / ENVS,
                penetration_ratio=pen_ratio, stage_device_ms=stages,
+               graph_replay=replay,
                k4_device_ms=device["device_ms"], k4_wrapper_ms=wrapper_ms,
                k4_emitted=counts["num"], solve_ms_full=k3["ms_full_solve"],
                solve_share_of_frame=k3["ms_full_solve"] / out["frame_ms"],
@@ -2037,10 +2266,12 @@ def phase_envs64(card: str, envs1024: dict) -> dict:
     from phyx_tpu_torch.step import integrate_velocities, solve_inputs
     n_envs = 64
     st, cfg, out = _drive("envs", n_envs * 256, 240, ("K1", "K6"), card,
-                          built=_envs_scene(n_envs, 256))
+                          built=_envs_scene(n_envs, 256), both_ways=True)
     pen_ratio = _envs_bar(out, n_envs)
     st, stages = _stage_ms(st, cfg, frames=3)
-    _checked_rate(out, stages)
+    _checked_rate(out, stages, null_below=True)
+    replay = _replay_equals_steps(st, cfg, f"the settled {n_envs}-env frame")
+    _register(f"envs {n_envs}", out, st, cfg)
     k6_args = sap_kernel_inputs(integrate_velocities(st.bodies, cfg),
                                 cfg.max_pairs, True)
     k6 = _emit_at("K6", k6_args, f"the settled {n_envs}-env frame", True)
@@ -2073,7 +2304,10 @@ def phase_envs64(card: str, envs1024: dict) -> dict:
                           f"the settled {n_envs}-env frame")
     out.update(metric=f"env-steps/s @ {n_envs} envs x 256 boxes (port, H100 "
                "path)", env_steps_per_s=_per_env(out, n_envs),
+               env_steps_per_s_uncaptured=_per_env(
+                   dict(steps_per_s=out["steps_per_s_uncaptured"]), n_envs),
                env_steps_per_s_1024_envs=envs1024["env_steps_per_s"],
+               graph_replay=replay,
                envs=n_envs, contacts_per_env=out["num_contacts"] / n_envs,
                penetration_ratio=pen_ratio, stage_device_ms=stages,
                k6_device_ms=k6["ms"], k6_wrapper_ms=k6["wrapper_ms"],
@@ -2128,7 +2362,7 @@ def phase_pile500(card: str) -> dict:
     from phyx_tpu_torch.step import integrate_velocities
     cfg = _bench_cfg("pile", 500).replace(broadphase="sap")
     st, cfg, out = _drive("pile", 500, 400, ("K2", "K7"), card, built=(
-        cfg, scenes.pile(cfg, 500, seed=0).build()))
+        cfg, scenes.pile(cfg, 500, seed=0).build()), both_ways=True)
     pen_ratio = out["max_penetration"] / 0.5
     if (out["num_contacts"] <= 0 or out["pair_overflow"] != 0
             or not pen_ratio <= 0.6):
@@ -2137,6 +2371,9 @@ def phase_pile500(card: str) -> dict:
                              f"{out['pair_overflow']}, penetration ratio "
                              f"{pen_ratio}")
     st, stages = _stage_ms(st, cfg, frames=3)
+    _checked_rate(out, stages)
+    replay = _replay_equals_steps(st, cfg, "the settled 500-box pile")
+    _register("pile 500 sap", out, st, cfg)
     k7_args = sap_kernel_inputs(integrate_velocities(st.bodies, cfg),
                                 cfg.max_pairs, False)
     k7 = _emit_at("K7", k7_args, "the settled 500-box frame", False)
@@ -2156,7 +2393,8 @@ def phase_pile500(card: str) -> dict:
     k2 = _k2_at_frame(st, cfg, "the 500-box frame")
     out.update(metric="steps/s @ 500-box pile, broadphase sap (port, H100 "
                "path)", penetration_ratio=pen_ratio, stage_device_ms=stages,
-               k7_device_ms=k7["ms"], k7_wrapper_ms=k7["wrapper_ms"],
+               graph_replay=replay, k7_device_ms=k7["ms"],
+               k7_wrapper_ms=k7["wrapper_ms"],
                k7_emitted=k7["emitted"], solve_ms_full=k2["ms_full_solve"],
                k1_ms_full_solve=k2["k1_ms_full_solve"],
                k2_levels=k2["levels"], k2_prepass_ms=k2["prepass_ms"])
@@ -2167,6 +2405,168 @@ def phase_pile500(card: str) -> dict:
                 max_pairs_cut=cut["max_pairs"],
                 k2=dict(launches_pile500=out["launches"]["K2"], **{
                     f"{key}_pile500": k2[key] for key in _K2_KEYS}))
+
+
+# bench row D's sizes by bench.py's build() (8 pairs a box, rounded up to
+# 512): boxes -> (cap, max_pairs)
+ROW_D = {20_000: (32_768, 160_256), 100_000: (131_072, 800_256)}
+# the reference's 20k row D on the TPU v5e (BASELINE.md:24): a sanity
+# band for the physics, not a target
+REF_D20K = dict(steps_per_s_tpu=9.24, sap_window=272, penetration_ratio=0.825)
+# the 100k avalanche's settle inside this script (bench row D settles
+# 1000 frames; the script's time limit allows this many: PERF.md §4)
+SETTLE_100K = 150
+# bench row D's --steps: the timed windows are 10 and 20 frames, after
+# two of 10 and 20 (bench.py:376-380, 397-405)
+ROW_D_STEPS = 10
+
+
+def phase_avalanche(card: str, boxes: int, settle: int,
+                    plain_check: bool = True) -> dict:
+    """Bench row D: ``--scene avalanche --boxes N --settle S --autotune``
+    by bench.py's build() policy (8 pairs a box, ``sap_grid`` window 192 /
+    8 hits, cap above 23,680: the tiled tier, K3) and its autotuned settle
+    (bench.py:358-375: ``rollout_autotuned`` in chunks of 10, each retune
+    printed as bench.py prints it; on the card each configuration is a
+    captured graph, the one left freed).  Every retune keeps the contact
+    slots in whole 1024-slot blocks, so the tier stays; K3 launches once a
+    frame of the settle and no other kernel.  Then frames timed both ways
+    on the final configuration (``_timed``, K3 once a frame), bench.py's
+    quality bar (penetration ratio <= 2.0, every ``ovf_*`` 0), stage times,
+    two replays against two steps, the policies' host time at the settled
+    state, and K3 at the settled frame: against its levels plain version
+    on warm + 1 velocity pass (where ``plain_check``: at 100k the plain
+    version's ~1 ms a level takes minutes), its pre-pass against
+    ``slab_levels``, levels a pass, timed on those passes and on all of
+    them.  bench.py's timing (``_timed`` with ``steps``) reads the bar at
+    the frame bench.py reads it, 60 frames after the settle."""
+    from phyx_tpu_torch import scenes, tiling
+    from phyx_tpu_torch.broadphase import suggest_sap_hits, suggest_sap_window
+    from phyx_tpu_torch.step import graph_info, release_graphs, solve_inputs
+    from phyx_tpu_torch.tune import rollout_autotuned, tune_config
+    release_graphs()
+    cfg = _bench_cfg("avalanche", boxes)
+    if (cfg.max_bodies, cfg.max_pairs) != ROW_D.get(boxes, ()):
+        raise AssertionError(f"avalanche {boxes}: cap {cfg.max_bodies}, "
+                             f"{cfg.max_pairs} pairs, not bench.py's")
+    st = scenes.avalanche(cfg, boxes, seed=0).build()
+    chunk = 10 if boxes >= 50_000 else min(10, 50)   # bench.py, --steps 10
+    retunes, pools = [], []
+
+    def on_retune(a, b, done):
+        slots = 2 * b.max_pairs
+        if not (slots % 1024 == 0 and tiling.resolve_tiled(
+                b, b.max_bodies, slots)):
+            raise AssertionError(f"retune at {done} left the tiled tier: "
+                                 f"{slots} contact slots")
+        pools.extend(g["pool_bytes"] for g in graph_info() if g["cfg"] == a)
+        retunes.append(dict(frame=done, window=b.sap_window, hits=b.sap_hits,
+                            pairs=b.max_pairs, tile_halo=b.tile_halo,
+                            seconds=time.perf_counter() - t0))
+        print(f"# retune@{done}: window {a.sap_window}->{b.sap_window} hits "
+              f"{a.sap_hits}->{b.sap_hits} pairs {a.max_pairs}->"
+              f"{b.max_pairs} tile_halo {a.tile_halo}->{b.tile_halo}",
+              flush=True)
+
+    _sync()
+    _reset_counts()
+    t0 = time.perf_counter()
+    st, cfg = rollout_autotuned(st, cfg, settle, chunk=chunk,
+                                on_retune=on_retune)
+    _sync()
+    settle_s = time.perf_counter() - t0
+    launches = _counts()
+    if launches != {k: settle if k == "K3" else 0 for k in launches}:
+        raise AssertionError(f"avalanche {boxes} settle: launches "
+                             f"{launches} in {settle} frames")
+    if len(graph_info()) > 1:
+        raise AssertionError(f"graphs of left configurations kept: "
+                             f"{graph_info()}")
+    print(f"# avalanche {boxes}: {settle}-frame autotuned settle in "
+          f"{settle_s:.1f} s, {len(retunes)} retunes, K3 once a frame",
+          flush=True)
+    # the policies' host time at the settled state (suggest_sap_hits is a
+    # loop over the rows in Python, as in the reference)
+    t1 = time.perf_counter()
+    window = suggest_sap_window(st.bodies, cfg=cfg)
+    t2 = time.perf_counter()
+    hits = suggest_sap_hits(st.bodies, cfg=cfg)
+    t3 = time.perf_counter()
+    tune_config(st, cfg)
+    t4 = time.perf_counter()
+    policy = dict(suggest_sap_window=window, suggest_sap_window_s=t2 - t1,
+                  suggest_sap_hits=hits, suggest_sap_hits_s=t3 - t2,
+                  tune_config_s=t4 - t3)
+
+    st, out = _timed(st, cfg, ("K3",), both_ways=True, steps=ROW_D_STEPS)
+    out = dict(scene="avalanche", boxes=boxes, **out)
+    pen_ratio = out["max_penetration"] / 0.5
+    ovf = {k: out[k] for k in ("pair_overflow", "ovf_window", "ovf_slots",
+                               "ovf_drop", "ovf_band", "ovf_slab")}
+    verdict = dict(penetration_ratio=pen_ratio, bar=2.0,
+                   passed=not any(ovf.values()) and pen_ratio <= 2.0)
+    print(f"# avalanche {boxes}: quality {verdict}, overflow {ovf}, "
+          f"frame {settle + out['frames_total']}", flush=True)
+    if out["num_contacts"] <= 0 or not verdict["passed"]:
+        raise AssertionError(f"avalanche {boxes} bar missed: contacts "
+                             f"{out['num_contacts']}, overflow {ovf}, "
+                             f"penetration ratio {pen_ratio}")
+    st, stages = _stage_ms(st, cfg, frames=3)
+    _checked_rate(out, stages)
+    what = f"the settled {boxes // 1000}k avalanche"
+    replay = _replay_equals_steps(st, cfg, what)
+    _register(f"avalanche {boxes}", out, st, cfg)
+
+    # K3 at the settled frame: its levels plain version on warm + 1
+    # velocity pass, its level schedule, timed on those and on all passes
+    args = solve_inputs(st, cfg)
+    if "cum" not in args:
+        raise AssertionError(f"{what} did not take the slab-major path")
+    k3 = _wrappers()["K3"]
+    walked = _walked("K3", args)
+    short = dict(args, vel_iters=1, pos_iters=0)
+    lp = _equals_levels_plain("K3", short, what) if plain_check else {}
+    lv = _tiled_levels("K3", args, what)
+    ms_short = _kernel_ms(k3, short, reps=5)
+    ms_full = _kernel_ms(k3, args, reps=3)
+    passes = 1 + args["vel_iters"] + args["pos_iters"]
+    full = _bound_slabs(args, walked)
+    k = dict(**({} if not lp else dict(
+                 max_abs_err=lp["max_abs_err_levels_plain"],
+                 plain_ms=lp["levels_plain_ms"])), ms=ms_short,
+             **_bound_slabs(short, walked), ms_full_solve=ms_full,
+             bound_ms_full_solve=full["bound_ms"], walked_slots=walked,
+             levels=lv["levels"], prepass_ms=lv["prepass_ms"],
+             ns_per_level=(ms_full - lv["prepass_ms"]) * 1e6
+             / max(1, passes * lv["levels"]),
+             level_widths={x: lv[x] for x in ("width_p50", "width_p90",
+                                              "width_p99", "width_max")},
+             launches=out["launches"]["K3"])
+    print(f"# K3 at {what}: {walked} slots in {lv['levels']} levels a pass "
+          f"(widths p50 {lv['width_p50']}, max {lv['width_max']}); warm + 1 "
+          f"velocity pass {ms_short:.4f} ms, full solve {ms_full:.4f} ms, "
+          f"pre-pass {lv['prepass_ms']:.4f} ms, {k['ns_per_level']:.1f} ns a "
+          f"level", flush=True)
+    pools.extend(g["pool_bytes"] for g in graph_info())
+    out.update(metric=f"steps/s @ {boxes}-box avalanche, --autotune (port, "
+               "H100 path)", settle_frames=settle, settle_s=settle_s,
+               chunk=chunk,
+               frames_total=settle + out["frames_total"], card=card,
+               retunes=retunes, graph_pool_bytes=pools, policy=policy,
+               quality=verdict, stage_device_ms=stages, graph_replay=replay,
+               final_config=dict(sap_window=cfg.sap_window,
+                                 sap_hits=cfg.sap_hits,
+                                 max_pairs=cfg.max_pairs,
+                                 tile_halo=cfg.tile_halo),
+               solve_ms_full=ms_full,
+               solve_share_of_frame=ms_full / out["frame_ms"],
+               k3_walked_slots=walked, k3_levels=lv["levels"],
+               k3_prepass_ms=lv["prepass_ms"],
+               k3_ns_per_level=k["ns_per_level"],
+               reference_fingerprint=REF_D20K if boxes == 20_000 else None)
+    print(json.dumps(out), flush=True)
+    release_graphs()
+    return dict(out=out, k3=k)
 
 
 # the colored solve on the card against the same solve on the CPU: max
@@ -2337,35 +2737,78 @@ def _colored_checks(st, cfg, what: str) -> dict:
 ROW_C_VERDICT_FRAME = 600
 
 
+def _run_to(st, cfg, frame: int, last: int) -> dict:
+    """The stats at frame ``last`` of a run at frame ``frame``, reached
+    through ``rollout`` with every synchronising call an error."""
+    import torch
+    from phyx_tpu_torch.step import rollout, stats_dict
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = rollout(st, cfg, last - frame)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return dict(stats_dict(st.stats), frame=last)
+
+
+def _penetration_trace(st, cfg, frame: int, last: int) -> dict:
+    """The penetration ratio (max penetration over the box half, 0.5) of
+    every frame after ``frame`` up to ``last``, one replayed frame at a
+    time, read after each: the peak and its frame, beside the 0.6 bar."""
+    from phyx_tpu_torch.step import rollout
+    ratios = []
+    for _ in range(frame, last):
+        st = rollout(st, cfg, 1)
+        ratios.append(st.stats.max_penetration.item() / 0.5)
+    peak = max(ratios)
+    out = dict(frames=[frame + 1, last], peak=peak,
+               peak_frame=frame + 1 + ratios.index(peak),
+               mean=sum(ratios) / len(ratios),
+               frames_above_bar=sum(r > 0.6 for r in ratios))
+    print(f"# colored 10k pile, frames {frame + 1}-{last} one at a time: "
+          f"penetration ratio peak {peak:.4f} at frame {out['peak_frame']}"
+          f", mean {out['mean']:.4f}, {out['frames_above_bar']} frames "
+          "above the 0.6 bar", flush=True)
+    return out
+
+
+# the colored 10k pile's penetration ratio is read frame by frame from its
+# settled frame to this one
+PILE_TRACE_TO = 330
+
+
 def _colored_scene(scene: str, boxes: int, settle: int, card: str,
                    verdict_frame: int = 0) -> dict:
     """One of bench.py's scenes under ``solver_backend="xla"`` (its
     build() policy otherwise): settled and timed by ``_drive`` (no kernel
-    of K1-K7 may launch), run on to ``verdict_frame`` where that is later
-    (no host wait either), bench.py's quality bar, stage times, the checks
-    of ``_colored_checks``, and the frame's stages handed to the
+    of K1-K7 may launch) both ways; from the settled frame, the pile's
+    penetration ratio read frame by frame to ``PILE_TRACE_TO`` and the
+    chain run on to ``verdict_frame`` (no host wait); bench.py's quality
+    bar (the pile's at the end of its timing, the chain's at
+    ``verdict_frame``), stage times, two replays against two steps, the
+    checks of ``_colored_checks``, and the frame's stages handed to the
     profiler's count of kernels."""
-    import torch
     from phyx_tpu_torch import scenes
-    from phyx_tpu_torch.step import (contact_stage, finish_stage, rollout,
-                                     solve_stage, stats_dict)
+    from phyx_tpu_torch.step import contact_stage, finish_stage, solve_stage
     cfg = _bench_cfg(scene, boxes).replace(solver_backend="xla")
     kw = {"seed": 0} if scene == "pile" else {}
+    if scene == "pile":
+        def after(st, cfg):
+            return _penetration_trace(st, cfg, settle, PILE_TRACE_TO)
+    else:
+        def after(st, cfg):
+            return _run_to(st, cfg, settle, verdict_frame)
     st, cfg, out = _drive(scene, boxes, settle, (), card, built=(
-        cfg, getattr(scenes, scene)(cfg, boxes, **kw).build()))
-    if verdict_frame > out["frames_total"]:
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            st = rollout(st, cfg, verdict_frame - out["frames_total"])
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        out.update(stats_dict(st.stats), frames_total=verdict_frame)
+        cfg, getattr(scenes, scene)(cfg, boxes, **kw).build()),
+        both_ways=True, after_settle=after)
     if scene == "pile":
         out["penetration_ratio"] = out["max_penetration"] / 0.5
         ok = out["num_contacts"] > 0 and out["penetration_ratio"] <= 0.6
+        ovf = out["pair_overflow"]
     else:
-        ok = out["residual"] <= 1e-2
-    if out["pair_overflow"] != 0 or not ok:
+        verdict = out["after_settle"]
+        ok = verdict["residual"] <= 1e-2
+        ovf = verdict["pair_overflow"]
+    if ovf != 0 or not ok:
         raise AssertionError(f"colored {scene} bar missed: {out}")
     # no sleep ahead: a colored solve queues more kernels than the launch
     # queue holds, so behind a sleep the host waits for it (666 ms of
@@ -2374,6 +2817,9 @@ def _colored_scene(scene: str, boxes: int, settle: int, card: str,
     # time comes from torch.profiler (``_kernels_a_call``)
     st, stages = _stage_ms(st, cfg, frames=3, sleep_cycles=0)
     del stages["sleep"], stages["device_only"]
+    out["graph_replay"] = _replay_equals_steps(
+        st, cfg, f"the settled colored {scene}")
+    out["host_enqueue_ms"] = stages["host_enqueue"]
     checks = _colored_checks(st, cfg, f"the settled {scene} frame")
     if scene == "pile":
         # colors scarce: the final class sums real conflicts, through the
@@ -2400,6 +2846,9 @@ def _colored_scene(scene: str, boxes: int, settle: int, card: str,
         bodies, contacts, pairs, st.joints, jrows, jwarm, cfg))
     _FRAMES[f"{scene} xla finish_stage"] = (where, lambda: finish_stage(
         st, cfg, solved[0], solved[4], solved[5], contacts, *solved[1:4]))
+    _register(f"{scene} {boxes} xla", out, st, cfg, stages=tuple(
+        f"{scene} xla {s}" for s in ("contact_stage", "solve_stage",
+                                     "finish_stage")))
     for part, fn in _colored_parts(bodies, contacts, st.joints, jrows,
                                    jwarm, cfg).items():
         _FRAMES[f"{scene} xla solve: {part}"] = (where, fn)
@@ -2455,8 +2904,8 @@ def _colored_fallback_frame() -> float:
 
 def _colored_summary(colored: dict, a_call: dict) -> dict:
     """The colored scenes' frames: the stages' CUDA kernels and device
-    busy ms (torch.profiler) beside the slope's frame ms, and the device's
-    idle share of the frame."""
+    busy ms (torch.profiler) beside the replayed slope's frame ms, and the
+    device's idle share of the frame (both ways: ``_frames_summary``)."""
     out = {}
     for key, scene in (("pile10k", "pile"), ("chain", "chain")):
         rec = colored[key]
@@ -2533,6 +2982,7 @@ def main() -> int:
     import argparse
 
     import torch
+    from phyx_tpu_torch.step import release_graphs
     parser = argparse.ArgumentParser(description="Smoke run of the port on "
                                      "one GPU (see the module docstring).")
     parser.add_argument("--quick", action="store_true",
@@ -2543,28 +2993,52 @@ def main() -> int:
                         "settled frames")
     opts = parser.parse_args()
     card = phase_device()
+    t_start = time.perf_counter()
+
+    def lap(name: str) -> None:
+        print(f"# phase {name} done at {time.perf_counter() - t_start:.1f} "
+              "s", flush=True)
+
     if opts.parent:
         _PARENT.update(_parent_wrappers(opts.parent))
     phase_build()
+    lap("build")
     small = phase_compare()
     tiled = phase_compare_tiled()
     sweep_small = phase_compare_sweep()
     emit_small = phase_compare_emit()
     phase_step_parity()
+    lap("compare")
     if opts.quick:
         _kernels_a_call()
         return 0
     pile = phase_pile10k(card)
+    lap("pile10k")
     chain = phase_chain(card)
+    lap("chain")
     pile1k = phase_pile1k(card)
+    lap("pile1k")
     pile20k = phase_pile20k(card)
+    lap("pile20k")
     envs = phase_envs1024(card)
+    lap("envs1024")
     envs64 = phase_envs64(card, envs)
+    lap("envs64")
     pile500 = phase_pile500(card)
+    lap("pile500")
+    aval20k = phase_avalanche(card, 20_000, 300)
+    lap("avalanche 20k")
+    aval100k = phase_avalanche(card, 100_000, SETTLE_100K,
+                               plain_check=False)
+    lap("avalanche 100k")
     colored = phase_colored(card)
+    lap("colored")
+    release_graphs()
     a_call = _kernels_a_call()
+    lap("profiler")
     print(json.dumps({"colored": _colored_summary(colored, a_call)}),
           flush=True)
+    print(json.dumps({"frames": _frames_summary(a_call)}), flush=True)
     passes = "warm + 1 velocity + 1 displacement pass"
     k3, k5 = pile20k["k3"], pile20k["k5"]
     # the tiled kernels' level schedule at the 20k frame
@@ -2606,7 +3080,10 @@ def main() -> int:
              "phyx_tpu/kernels/contact_solver_tiled2.py:68", k3,
              "warm + 1 velocity pass at the 20k pile frame",
              **small_tiled["K3"], contacts=k3["contacts"],
-             **{key: k3[key] for key in tiled_keys}, **envs["k3"]),
+             **{key: k3[key] for key in tiled_keys}, **envs["k3"],
+             **{f"{key}_{name}": v for name, rec in (
+                 ("avalanche20k", aval20k), ("avalanche100k", aval100k))
+                for key, v in rec["k3"].items()}),
         _row("contact_solver_tiled (K5)",
              "phyx_tpu_torch/csrc/contact_solver_tiled.cu",
              "phyx_tpu/kernels/contact_solver_tiled.py:57", k5,

@@ -23,8 +23,10 @@ All emit pairs sorted lexicographically by ``(pi, pj)`` with EMPTY slots
 last, and count what a budget truncated (``ovf_*``) instead of dropping it
 silently.  Where the configuration runs the tiled solve (``tiling``), the
 sweeps instead finalize slab-major: pairs ordered (slab, pi, pj), with the
-routing the tiled solve reads attached (``TiledRouting``).  Nothing here
-reads a value back to the host.
+routing the tiled solve reads attached (``TiledRouting``).  Nothing a
+step runs reads a value back to the host; the two budget policies at the
+end (``suggest_sap_window``, ``suggest_sap_hits``: host NumPy on one copy
+of the bodies' AABBs, for ``tune``) are not part of a step.
 """
 
 from __future__ import annotations
@@ -636,3 +638,85 @@ def broadphase(bodies: Bodies, cfg: SimConfig,
             return broadphase_sap_kernel(bodies, cfg)
         return broadphase_sap_tiled(bodies, cfg, emit_routing=tiled_routing)
     return broadphase_sap_grid(bodies, cfg, emit_routing=tiled_routing)
+
+
+def _host_aabbs(bodies: Bodies):
+    """The AABBs' lo, hi (N, 2) f32 and the active mask as NumPy arrays:
+    one device-to-host copy."""
+    lo, hi = compute_aabbs(bodies)
+    host = torch.cat([lo, hi, bodies.active[:, None].to(lo.dtype)],
+                     dim=1).cpu().numpy()
+    return host[:, 0:2], host[:, 2:4], host[:, 4] != 0.0
+
+
+def suggest_sap_window(bodies: Bodies, percentile: float = 99.9,
+                       margin: float = 1.5, exclude_long_k: int = 8,
+                       cfg: Optional[SimConfig] = None) -> int:
+    """Host-side window-sizing policy for the windowed and grid sweeps
+    (``phyx_tpu/broadphase.py`` ``suggest_sap_window``, the same
+    statistic in the same NumPy operations): every active body's forward
+    x-neighbour span on the current state (the x-sorted bodies after it
+    whose interval opens before its own closes), the ``exclude_long_k``
+    widest bodies left out (they take the dense lane), and ``percentile``
+    of the spans times ``margin``.  With ``cfg`` sweeping banded keys
+    (``sweep_band_h`` > 0) the spans are measured on those keys, in f64."""
+    lo, hi, act = _host_aabbs(bodies)
+    if not act.any():
+        return 16
+    ext = np.where(act, hi[:, 0] - lo[:, 0], -np.inf)
+    act[np.argsort(-ext)[:exclude_long_k]] = False
+    xlo = lo[act, 0].astype(np.float64)
+    xhi = hi[act, 0].astype(np.float64)
+    if cfg is not None and cfg.sweep_band_h > 0.0:
+        b = np.floor((lo[act, 1] - cfg.sweep_band_y0) / cfg.sweep_band_h)
+        off = b * float(cfg.sweep_band_span)
+        xlo = xlo + off
+        xhi = xhi + off
+    srt = np.argsort(xlo)
+    xlo = xlo[srt]
+    xhi = xhi[srt]
+    span = np.searchsorted(xlo, xhi, side="right") \
+        - np.arange(xlo.shape[0]) - 1
+    w = float(np.percentile(span, percentile)) * margin
+    return max(8, int(np.ceil(w)))
+
+
+def suggest_sap_hits(bodies: Bodies, margin: int = 4,
+                     exclude_long_k: int = 8,
+                     cfg: Optional[SimConfig] = None) -> int:
+    """Host-side hit-slot sizing for the grid sweep (``cfg.sap_hits``;
+    ``phyx_tpu/broadphase.py`` ``suggest_sap_hits``, the same operations):
+    the largest count of true forward hits of an active body on the
+    current state (forward x-sorted neighbours whose AABB overlaps in both
+    axes, on banded keys where ``cfg`` sweeps them), the
+    ``exclude_long_k`` widest bodies left out, plus ``margin``.  Hit-slot
+    spill drops real pairs, so it sizes for the maximum.  A loop over the
+    sorted rows in Python, as in the reference."""
+    lo, hi, act = _host_aabbs(bodies)
+    lo = lo.astype(np.float64)
+    hi = hi.astype(np.float64)
+    if not act.any():
+        return 8
+    ext = np.where(act, hi[:, 0] - lo[:, 0], -np.inf)
+    act[np.argsort(-ext)[:exclude_long_k]] = False
+    xlo, xhi = lo[act, 0], hi[act, 0]
+    ylo, yhi = lo[act, 1], hi[act, 1]
+    if cfg is not None and cfg.sweep_band_h > 0.0:
+        b = np.floor((lo[act, 1] - cfg.sweep_band_y0) / cfg.sweep_band_h)
+        off = b * float(cfg.sweep_band_span)
+        xlo = xlo + off
+        xhi = xhi + off
+    srt = np.argsort(xlo, kind="stable")
+    xlo, xhi, ylo, yhi = xlo[srt], xhi[srt], ylo[srt], yhi[srt]
+    m = xlo.shape[0]
+    ends = np.searchsorted(xlo, xhi, side="right")
+    best = 0
+    for i in range(m):
+        e = ends[i]
+        if e - i - 1 <= best:
+            continue
+        hits = int(((ylo[i + 1:e] <= yhi[i])
+                    & (ylo[i] <= yhi[i + 1:e])).sum())
+        if hits > best:
+            best = hits
+    return best + margin

@@ -12,13 +12,18 @@
 // pairs.  No torch operation runs between count and write.
 //
 // The grid is persistent (as many blocks as stay resident): a block takes
-// tiles by ticket until they are all taken.  The scratch (Scan) is kept by
-// the wrapper per device, stream and shape and zeroed once.  It needs no
-// memset per call: the wrapper numbers its calls (the epoch, passed as an
-// int); the ticket counter is raised to epoch << 32 by the call's first
-// ticket, so the low 32 bits count the call's tickets, and every flag a
-// call publishes carries its epoch, so a flag of another call reads as not
-// yet published.
+// tiles by ticket until they are all taken, then one ticket more, and
+// exits.  The scratch (Scan) is kept by the wrapper per device, stream and
+// shape and zeroed once.  It needs no memset per call and nothing of the
+// call from the host: the ticket counter's high word counts the finished
+// calls and its low word the call's tickets.  A call's number (its epoch,
+// 1 .. 2^30 - 1, in turn) is the count it reads in its tickets, plus one;
+// the block that takes the call's last ticket (the kernel knows its
+// number: every block takes one past the work) raises the count and
+// clears the tickets for the next call, whose blocks start after this
+// launch ends.  Every flag a call publishes carries its epoch, so a flag
+// of another call reads as not yet published.  So a launch captured in a
+// CUDA graph computes on every replay what it computes when run.
 
 #pragma once
 
@@ -34,19 +39,21 @@ constexpr unsigned kAggregate = 1u, kInclusive = 2u;  // a flag's state
 // a wait that has not ended after this many tries is a fault of the
 // schedule: the kernel traps (a launch error) instead of hanging the card
 constexpr unsigned kMaxTries = 1u << 26;
+// the epochs, taken in turn: a flag holds 30 bits of one, and 0 is none
+constexpr unsigned kEpochs = (1u << 30) - 1u;
 
 struct Scan {
-  unsigned long long* ticket;  // (1) epoch << 32 | tickets of the call
+  unsigned long long* ticket;  // (1) finished calls << 32 | call's tickets
   unsigned* flag;              // (ntiles) epoch << 2 | state
   long long* agg;              // (ntiles) a tile's count
   long long* incl;             // (ntiles) the counts of tiles [0, i]
   int ntiles;
-  unsigned epoch;  // the call's number, 1 .. 2^30 - 1, rising
 };
 
 struct Tile {
   int index;       // in the emission order (a ticket, before it is mapped)
   unsigned epoch;  // the call's
+  unsigned calls;  // the calls finished before it
 };
 
 __device__ __forceinline__ void store_release(unsigned* p, unsigned v) {
@@ -92,21 +99,26 @@ __device__ __forceinline__ float load_relaxed(const float* p) {
 }
 
 // The block's next ticket of this call, 0, 1, 2, ... (the kernel maps it
-// to a tile, or stops past the last).  Every thread of the block
-// (barriers: the block's shared memory of the tile before is free after
-// it).
+// to a tile, or stops past the last), and the call's epoch.  Every thread
+// of the block (barriers: the block's shared memory of the tile before is
+// free after it).
 __device__ __forceinline__ Tile take(const Scan& sc) {
   __shared__ unsigned long long s_ticket;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    const unsigned long long base =
-        static_cast<unsigned long long>(sc.epoch) << 32;
-    atomicMax(sc.ticket, base);  // a counter of an earlier call restarts
-    s_ticket = atomicAdd(sc.ticket, 1ull) - base;
-  }
+  if (threadIdx.x == 0) s_ticket = atomicAdd(sc.ticket, 1ull);
   __syncthreads();
-  const unsigned long long i = s_ticket;
-  return {i < 0x7fffffffull ? static_cast<int>(i) : 0x7fffffff, sc.epoch};
+  const unsigned long long t = s_ticket;
+  const unsigned calls = static_cast<unsigned>(t >> 32);
+  const unsigned long long i = t & 0xffffffffull;
+  return {i < 0x7fffffffull ? static_cast<int>(i) : 0x7fffffff,
+          calls % kEpochs + 1u, calls};
+}
+
+// By the block holding the call's last ticket, when every ticket of the
+// call has been taken: the call counts as finished and the next one's
+// tickets start at 0.  One thread.
+__device__ __forceinline__ void finish_call(const Scan& sc, Tile t) {
+  atomicExch(sc.ticket, static_cast<unsigned long long>(t.calls + 1u) << 32);
 }
 
 // The persistent grid of `kernel`: as many blocks as the card keeps

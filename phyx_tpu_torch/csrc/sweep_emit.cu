@@ -373,7 +373,7 @@ __global__ void __launch_bounds__(kCellThreads)
     }
     continue;
   }
-  const op::Tile tile{ticket.index - w.nb, ticket.epoch};
+  const op::Tile tile{ticket.index - w.nb, ticket.epoch, ticket.calls};
   if (warp == 0) {
     int s = 0, t = 0, q = 0;
     const int n = locate(w, rc, tile.epoch, na, tile.index, s, t, q);
@@ -386,6 +386,10 @@ __global__ void __launch_bounds__(kCellThreads)
   }
   __syncthreads();
   const int reached = s_tile[3];
+  // the call's last ticket: one past the end tile a block but the end
+  // tile's (which exits after it)
+  if (tid == 0 && tile.index == reached + static_cast<int>(gridDim.x) - 1)
+    op::finish_call(sc, tile);
   if (tile.index > reached) return;  // past the end tile: none left
   if (tile.index == reached) {       // the end tile: num, ovf, EMPTY tail
     if (warp == 0) {
@@ -588,18 +592,16 @@ extern "C" int phyx_sweep_chunked_tiles(int nb) {
 // launch writes the whole buffer (EMPTY from num on) and counters (2)
 // int32 [num, ovf].  The scratch, zeroed once and kept for this stream and
 // shape: ticket (1) u64, flag (ntiles) u32, agg and incl (ntiles) i64,
-// reach_flag and reach (nb) i32; ntiles = phyx_sweep_chunked_tiles(nb);
-// epoch: the wrapper's number of this call on that scratch, 1 .. 2^30 - 1,
-// rising from call to call.
+// reach_flag and reach (nb) i32; ntiles = phyx_sweep_chunked_tiles(nb).
+// The launch keeps the scratch's call count itself (csrc/onepass.cuh), so
+// the scratch is never cleared and a captured launch replays.
 extern "C" int phyx_sweep_chunked(const void* aabb, const void* order,
                                   const void* dyn, const void* nact,
                                   void* ticket, void* flag, void* agg,
                                   void* incl, void* reach_flag, void* reach,
                                   void* pi, void* pj, void* counters, int nb,
-                                  int max_pairs, int empty, int epoch,
-                                  void* stream) {
-  if (nb < 1 || epoch < 1 || epoch >= 1 << 30)
-    return static_cast<int>(cudaErrorInvalidValue);
+                                  int max_pairs, int empty, void* stream) {
+  if (nb < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int ntiles = phyx_sweep_chunked_tiles(nb);
   const Chunked w{static_cast<const float4*>(aabb),
                   static_cast<const int*>(order), static_cast<const int*>(dyn),
@@ -607,8 +609,7 @@ extern "C" int phyx_sweep_chunked(const void* aabb, const void* order,
   const phyx::onepass::Scan sc{static_cast<unsigned long long*>(ticket),
                                static_cast<unsigned*>(flag),
                                static_cast<long long*>(agg),
-                               static_cast<long long*>(incl), ntiles,
-                               static_cast<unsigned>(epoch)};
+                               static_cast<long long*>(incl), ntiles};
   const Reach rc{static_cast<unsigned*>(reach_flag), static_cast<int*>(reach)};
   const int grid = phyx::onepass::resident_grid(chunked_onepass, kCellThreads,
                                                 nb + ntiles + 1);

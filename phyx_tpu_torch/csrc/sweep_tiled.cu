@@ -188,7 +188,11 @@ __global__ void __launch_bounds__(kSweeps, 4)
   __syncthreads();  // the tile before is done with the counters
   if (tid == 0) s_fill = s_nlong = 0;
   const op::Tile tile = op::take(sc);  // barriers: the counters are set
-  if (tile.index >= sc.ntiles) return;
+  if (tile.index >= sc.ntiles) {  // one ticket past the work a block
+    if (tid == 0 && tile.index == sc.ntiles + static_cast<int>(gridDim.x) - 1)
+      op::finish_call(sc, tile);
+    return;
+  }
   const int u = tile.index * kSweeps + tid;
   const int nact = *w.nact;
 
@@ -420,25 +424,25 @@ extern "C" int phyx_sweep_tiled_tiles(int n_sweeps) {
 // slots [0, num) and counters (3) int32 [num, ovf_drop, ovf_window].  The
 // scratch, zeroed once and kept for this stream and shape: ticket (1) u64,
 // flag (ntiles) u32, agg and incl (ntiles) i64, ovfw (ntiles) i32; ntiles
-// = phyx_sweep_tiled_tiles(n_slabs * stride); epoch: the wrapper's number
-// of this call on that scratch, 1 .. 2^30 - 1, rising from call to call.
+// = phyx_sweep_tiled_tiles(n_slabs * stride).  The launch keeps the
+// scratch's call count itself (csrc/onepass.cuh), so the scratch is never
+// cleared and a captured launch replays.
 extern "C" int phyx_sweep_tiled(const void* rows, const void* truex,
                                 const void* dyn, const void* order,
                                 const void* nact, void* ticket, void* flag,
                                 void* agg, void* incl, void* ovfw, void* pi,
                                 void* pj, void* counters, int npad,
                                 int stride, int window, int n_slabs,
-                                int max_pairs, int epoch, void* stream) {
+                                int max_pairs, void* stream) {
   const Rows w = columns(rows, truex, dyn, order, nact, npad, stride, window,
                          n_slabs);
-  if (window >= 1 << 23 || epoch < 1 || epoch >= 1 << 30)
+  if (window >= 1 << 23)
     return static_cast<int>(cudaErrorInvalidValue);
   const int ntiles = phyx_sweep_tiled_tiles(w.n_sweeps);
   const op::Scan sc{static_cast<unsigned long long*>(ticket),
                     static_cast<unsigned*>(flag),
                     static_cast<long long*>(agg),
-                    static_cast<long long*>(incl), ntiles,
-                    static_cast<unsigned>(epoch)};
+                    static_cast<long long*>(incl), ntiles};
   auto s = static_cast<cudaStream_t>(stream);
   int* o = static_cast<int*>(ovfw);
   int* a = static_cast<int*>(pi);

@@ -69,7 +69,7 @@ def build() -> tuple:
     lib, report = nvcc.load(SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.phyx_sweep_warp.argtypes = [ptr] * 9 + [i32] * 4 + [ptr]
-    lib.phyx_sweep_chunked.argtypes = [ptr] * 13 + [i32] * 4 + [ptr]
+    lib.phyx_sweep_chunked.argtypes = [ptr] * 13 + [i32] * 3 + [ptr]
     lib.phyx_sweep_chunked_tiles.argtypes = [i32]
     for fn in (lib.phyx_sweep_warp, lib.phyx_sweep_chunked,
                lib.phyx_sweep_chunked_tiles):
@@ -98,22 +98,25 @@ def check_inputs(aabb_flat, order, dyn, nact, max_pairs) -> int:
 
 def _scan_scratch(kind: str, device, ntiles: int, extra: tuple) -> tuple:
     """The single-pass scan's scratch for K4 or K6 (``csrc/onepass.cuh``)
-    on ``device``'s current stream, and this call's epoch: ticket (1,)
-    int64, flag (ntiles,) int32, agg and incl (ntiles,) int64, then
-    ``extra`` as (dtype, size) pairs.  Zeroed once and kept; the kernel
-    tags what it publishes with the epoch, which rises by one a call, so no
-    call needs it cleared (a fresh scratch after 2^30 - 1 calls)."""
+    on ``device``'s current stream: ticket (1,) int64, flag (ntiles,)
+    int32, agg and incl (ntiles,) int64, then ``extra`` as (dtype, size)
+    pairs.  Zeroed once and kept.  The launch counts its calls in the
+    ticket and tags what it publishes with the call's number, so no call
+    clears it and the host passes nothing of the call: a launch captured
+    in a CUDA graph (``step.rollout``) replays.  Calls on one stream run
+    in turn; a capture runs on its own stream (``step._capture``), whose
+    scratch the uncaptured warm-up frame makes before the capture, so the
+    captured launches of every graph use that one, outside the graphs'
+    pools."""
     stream = torch.cuda.current_stream(device).cuda_stream
     key = (kind, device.index, stream, ntiles, extra)
-    entry = _SCRATCH.get(key)
-    if entry is None or entry[1] >= (1 << 30) - 1:
-        entry = _SCRATCH[key] = [tuple(
+    if key not in _SCRATCH:
+        _SCRATCH[key] = tuple(
             torch.zeros((size,), dtype=dtype, device=device)
             for dtype, size in ((torch.int64, 1), (torch.int32, ntiles),
                                 (torch.int64, ntiles), (torch.int64, ntiles))
-            + extra), 0]
-    entry[1] += 1
-    return entry[0], entry[1]
+            + extra)
+    return _SCRATCH[key]
 
 
 _SCRATCH: dict = {}
@@ -155,11 +158,11 @@ def chunked_pass(aabb_flat, order, dyn, nact, pi, pj, counters,
                              "chunks of it in bulk)")
     nb = n // CHUNK
     lib, _ = build()
-    scratch, epoch = _scan_scratch(
+    scratch = _scan_scratch(
         "K6", aabb_flat.device, lib.phyx_sweep_chunked_tiles(nb),
         ((torch.int32, nb), (torch.int32, nb)))
     _launch(lib.phyx_sweep_chunked, aabb_flat, order, dyn, nact, *scratch,
-            pi, pj, counters, nb, max_pairs, EMPTY, epoch)
+            pi, pj, counters, nb, max_pairs, EMPTY)
 
 
 def warp_pass(aabb_flat, order, dyn, nact, pi, pj, num, ovf,

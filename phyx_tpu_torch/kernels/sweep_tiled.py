@@ -62,7 +62,7 @@ def build() -> tuple:
     (ctypes library, nvcc's report or "" when the build was cached)."""
     lib, report = nvcc.load(SOURCE)
     lib.phyx_sweep_tiled.argtypes = (
-        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.phyx_sweep_tiled_tiles.argtypes = [ctypes.c_int]
     for fn in (lib.phyx_sweep_tiled, lib.phyx_sweep_tiled_tiles):
         fn.restype = ctypes.c_int
@@ -134,11 +134,11 @@ def tiled_pass(rows, dyn, order, nact, max_pairs, n_slabs, slab_stride,
     refused."""
     lib = build()[0]
     ntiles = lib.phyx_sweep_tiled_tiles(n_slabs * slab_stride)
-    scratch, epoch = _scan_scratch("K4", rows.device, ntiles,
-                                   ((torch.int32, ntiles),))
+    scratch = _scan_scratch("K4", rows.device, ntiles,
+                            ((torch.int32, ntiles),))
     _launch(lib.phyx_sweep_tiled, rows, truex, dyn, order, nact, *scratch,
             pi, pj, counters, rows.shape[-1], slab_stride, window_rows,
-            n_slabs, max_pairs, epoch)
+            n_slabs, max_pairs)
 
 
 def _tiled_walk(rows, dyn, nact, n_slabs: int, K: int, W: int, truex):

@@ -262,11 +262,150 @@ def step(state: State, cfg: SimConfig) -> State:
 
 
 def rollout(state: State, cfg: SimConfig, num_steps: int) -> State:
-    """``num_steps`` frames.  A plain loop of ``step``: each frame's work
-    is queued on the device without waiting for the previous one."""
-    for _ in range(num_steps):
-        state = step(state, cfg)
-    return state
+    """``num_steps`` frames, in the role of the reference's ``lax.scan``
+    under one jit.  On the CPU a loop of ``step``.  On the card a CUDA
+    graph replay: the first call for a configuration runs one frame
+    uncaptured (the warm-up, which builds every kernel the frame launches),
+    captures one ``step`` (``_capture``) and replays it for the other
+    frames; later calls copy the state in and replay every frame.  The
+    replays chain on the device with no host work between frames.  Returns
+    a copy: a state the caller keeps is never written by a later replay.
+    A capture or replay that fails raises; nothing falls back to the
+    loop.  The kernels' launch counts (``<wrapper>.launches``) read as if
+    every frame had been stepped."""
+    if num_steps <= 0 or state.bodies.pos.device.type != "cuda":
+        for _ in range(num_steps):
+            state = step(state, cfg)
+        return state
+    dev = state.bodies.pos.device
+    sig = _signature(state)
+    graph = _GRAPHS.get((cfg, dev))
+    done = 0
+    if graph is None or graph.signature != sig:
+        release_graphs(cfg, dev)
+        graph = _GRAPHS[(cfg, dev)] = _capture(state, cfg, sig)
+        done = 1    # the warm-up frame, whose output the buffers hold
+    else:
+        _copy_into(graph.static, state)
+    for _ in range(num_steps - done):
+        graph.graph.replay()
+    for wrapper, count in graph.launches:
+        wrapper.launches += count * (num_steps - done)
+    return _map(graph.static, torch.clone)
+
+
+@dataclasses.dataclass
+class _Graph:
+    """A captured frame: ``graph`` reads ``static`` and writes the frame's
+    output back into it; ``launches`` holds each kernel wrapper's launches
+    in the frame; ``pool_bytes`` the device memory its private pool took
+    at capture (``torch.cuda.memory_reserved`` before and after)."""
+
+    graph: "torch.cuda.CUDAGraph"
+    static: State
+    signature: tuple
+    launches: tuple
+    pool_bytes: int
+
+
+# one graph a configuration and device: (cfg, device) -> _Graph
+_GRAPHS: dict = {}
+# the stream each device captures on (a capture needs one of its own)
+_STREAMS: dict = {}
+
+
+def _leaves(state: State) -> list:
+    return [getattr(getattr(state, rec.name), f.name)
+            for rec in dataclasses.fields(state)
+            for f in dataclasses.fields(getattr(state, rec.name))]
+
+
+def _map(state: State, fn) -> State:
+    return State(**{rec.name: getattr(state, rec.name).replace(**{
+        f.name: fn(getattr(getattr(state, rec.name), f.name))
+        for f in dataclasses.fields(getattr(state, rec.name))})
+        for rec in dataclasses.fields(state)})
+
+
+def _signature(state: State) -> tuple:
+    """Every state tensor's shape and dtype, in field order."""
+    return tuple((tuple(t.shape), t.dtype) for t in _leaves(state))
+
+
+def _copy_into(static: State, state: State) -> None:
+    """``static``'s tensors take ``state``'s values.  A source that shares
+    memory with a buffer of ``static`` (other than being that buffer) is
+    copied aside first, so no copy reads what another has written."""
+    dst = _leaves(static)
+    taken = {t.untyped_storage().data_ptr() for t in dst}
+    src = [s if s is d or s.untyped_storage().data_ptr() not in taken
+           else s.clone() for d, s in zip(dst, _leaves(state))]
+    for d, s in zip(dst, src):
+        if s is not d:
+            d.copy_(s)
+
+
+def _capture(state: State, cfg: SimConfig, signature: tuple) -> _Graph:
+    """One uncaptured frame from ``state`` on the device's capture stream
+    (the warm-up: it builds the frame's kernels before capture, since a
+    build must not run inside one, and makes K4's and K6's scan scratch
+    for that stream, which the captured launches then use), its output
+    copied into buffers of its own; then one ``step`` of those buffers
+    captured with the copy of its output back into them.  The launch
+    counts keep the warm-up's launches and not the capture's, which
+    launches nothing."""
+    from phyx_tpu_torch.kernels import wrappers
+    dev = state.bodies.pos.device
+    cur = torch.cuda.current_stream(dev)
+    side = _STREAMS.get(dev)
+    if side is None:
+        side = _STREAMS[dev] = torch.cuda.Stream(dev)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        static = _map(step(state, cfg), torch.clone)
+        before = [w.launches for w in wrappers()]
+        reserved = torch.cuda.memory_reserved(dev)
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin()
+        try:
+            _copy_into(static, step(static, cfg))
+        except BaseException:
+            # end the capture so the stream is usable, then raise the fault
+            try:
+                graph.capture_end()
+            except RuntimeError:
+                pass
+            raise
+        finally:
+            counted = [w.launches - b for w, b in zip(wrappers(), before)]
+            for w, b in zip(wrappers(), before):
+                w.launches = b
+        graph.capture_end()
+        pool = torch.cuda.memory_reserved(dev) - reserved
+    cur.wait_stream(side)
+    return _Graph(graph=graph, static=static, signature=signature,
+                  launches=tuple((w, c) for w, c in zip(wrappers(), counted)
+                                 if c),
+                  pool_bytes=pool)
+
+
+def release_graphs(cfg: SimConfig = None, device=None) -> None:
+    """Frees the captured frames of ``cfg`` (every configuration where
+    None) on ``device`` (every device where None), once the device has
+    finished their replays (the current stream is waited for)."""
+    for key in [k for k in _GRAPHS
+                if (cfg is None or k[0] == cfg)
+                and (device is None or k[1] == torch.device(device))]:
+        torch.cuda.current_stream(key[1]).synchronize()
+        del _GRAPHS[key]
+
+
+def graph_info() -> list:
+    """Each captured frame: its configuration, device, private pool bytes
+    and kernel launches a frame (by wrapper name)."""
+    return [dict(cfg=k[0], device=str(k[1]), pool_bytes=g.pool_bytes,
+                 launches={w.__name__: c for w, c in g.launches})
+            for k, g in _GRAPHS.items()]
 
 
 def stats_dict(stats: SolverStats) -> dict:
