@@ -61,17 +61,20 @@ Phases; any failure raises and the script exits non-zero:
              mega-scene under ``sap`` at cap 1024 through K6 + K1.  On
              each of these scenes, its frame captured as a CUDA graph
              (``rollout``), then two replays of it against two uncaptured
-             steps: every State tensor equal to the bit, the launch counts
-             equal.
+             steps: every State tensor equal to the bit, the replays
+             launching no wrapper; each of these frames (one a
+             configuration) handed to the profiler's session.
 4. pile10k — the 10k-box pile at the bench's settings (cap 16,384 bodies,
              32,256 pairs, sap_grid window 192 / 8 hits, 10+6 passes)
              through ``rollout``, a CUDA graph replay (one uncaptured
              frame, the capture, replays): a 200-frame settle (the bench's
              300, cut for the script's time) in which no step may wait for
              the device, a discarded warm-up window of n frames (in every
-             scene), then frames timed by the slope t(2n) - t(n) over n,
-             each launching K1 once and no other kernel (the replays'
-             launches counted from the captured frame's); in the scenes
+             scene), then frames timed by the slope t(2n) - t(n) over n
+             (the settle's wrappers launch K1 once, in its warm-up frame,
+             and no other kernel; the replays launch none, the graph runs
+             their kernels, which the profiler's trace counts); in the
+             scenes
              timed "both ways", then the same uncaptured, a loop of
              ``step``, and the host's ms a frame to queue each way; in
              every scene two replays against two uncaptured steps, every
@@ -197,8 +200,13 @@ Phases; any failure raises and the script exits non-zero:
              session counts and times the kernels of each colored frame's
              three stages and of its solve's parts (coloring, warm start,
              velocity passes, displacement passes): device busy ms, idle
-             share. The same session also counts and times one uncaptured step
-             of every timed scene: busy ms and idle share of each way's frame.
+             share. The same session also counts and times one uncaptured
+             step and three graph replays of every timed scene and of the
+             step-parity frames: in the trace each replay runs each
+             hand-written kernel as often as the step, whose wrappers'
+             counts hold each kernel's name to its wrapper; the kernels
+             line's launches are those of the replays; busy ms and idle
+             share of a replayed frame from the same trace.
 
 Prints a JSON line per main-path phase (physics, rates, stage times), a
 JSON line of the colored frames' breakdown, one of every timed scene both
@@ -231,8 +239,16 @@ def _sync():
 
 def _wrappers() -> dict:
     """Every kernel's wrapper, by name."""
-    from phyx_tpu_torch.kernels import wrappers
-    return dict(zip(("K1", "K2", "K3", "K4", "K5", "K6", "K7"), wrappers()))
+    from phyx_tpu_torch.kernels.contact_solver import solve_contacts_fused
+    from phyx_tpu_torch.kernels.contact_solver_streamed import \
+        solve_contacts_streamed
+    from phyx_tpu_torch.kernels.contact_solver_tiled import (
+        solve_contacts_tiled, solve_contacts_tiled2)
+    from phyx_tpu_torch.kernels.sweep import sweep_emit, sweep_emit_v2
+    from phyx_tpu_torch.kernels.sweep_tiled import sweep_emit_tiled
+    return dict(K1=solve_contacts_streamed, K2=solve_contacts_fused,
+                K3=solve_contacts_tiled2, K4=sweep_emit_tiled,
+                K5=solve_contacts_tiled, K6=sweep_emit_v2, K7=sweep_emit)
 
 
 def _plains() -> dict:
@@ -968,35 +984,63 @@ _PROBES: dict = {}
 # stages of frames whose CUDA kernels the same session counts and times:
 # name -> (where, function)
 _FRAMES: dict = {}
+# the sleep kernel ahead of each profiled call (~10 ms on the H100): the
+# host queues the call while it runs, so the call's device span shows the
+# device's own pace (``device_only`` says whether the host did finish)
+PROFILE_SLEEP_CYCLES = 20_000_000
+# the CUDA kernels of ``phyx_tpu_torch/csrc`` (K1, K3 and K5 each launch
+# the pre-pass visit_levels over their visit map, then level_solve; K2,
+# K4, K6 and K7 one kernel each), and the kernel that marks one launch of
+# each wrapper: every name part must be in the kernel's name
+HAND_KERNELS = ("visit_levels", "level_solve", "contact_solve_fused",
+                "tiled_onepass", "chunked_onepass", "warp_sweep")
+LAUNCH_MARKS = dict(K1=("visit_levels", "RowsMap"),
+                    K2=("contact_solve_fused",),
+                    K3=("visit_levels", "CumSlots"), K4=("tiled_onepass",),
+                    K5=("visit_levels", "BudgetSlots"),
+                    K6=("chunked_onepass",), K7=("warp_sweep",))
 
 
 def _kernels_a_call() -> dict:
     """The names of the CUDA kernels one call of each probe in ``_PROBES``
-    launches, and the count and summed device time of the kernels one call
-    of each entry of ``_FRAMES`` launches, from torch.profiler's device
-    events, all in one profiler session (a second session in a process has
-    returned no device events on the card): each call is queued behind a
-    short sleep kernel, which marks where its kernels start.  Raises
-    unless each probe launches exactly one kernel and each frame entry at
-    least one."""
+    launches, and, for one call of each entry of ``_FRAMES``: the count,
+    summed device time and device span (first start to last end) of the
+    CUDA kernels it launches, the hand-written ones by name
+    (``HAND_KERNELS``), the wrappers' launch counts in the call and the
+    host's ms to queue it, from torch.profiler's device events, all in one
+    profiler session (a second session in a process has returned no
+    device events on the card).  CUPTI records the kernels a CUDA graph
+    replay runs as it records any other.  Each call is queued behind a
+    sleep kernel, which marks where its kernels start.  Raises unless
+    each probe launches exactly one kernel and each frame entry at least
+    one."""
+    import collections
+
     import torch
     from torch.profiler import ProfilerActivity, profile
     calls = {**_PROBES, **_FRAMES}
     for _, fn in calls.values():
-        fn()                  # warm-up: builds and caches stay outside
+        fn()                  # warm-up: builds, caches and captures outside
     _sync()
+    launched, host_ms = {}, {}
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _, fn in calls.values():
-            torch.cuda._sleep(1000)
+        for name, (_, fn) in calls.items():
+            torch.cuda._sleep(PROFILE_SLEEP_CYCLES)
+            _reset_counts()
+            t0 = time.perf_counter()
             fn()
+            host_ms[name] = (time.perf_counter() - t0) * 1e3
+            launched[name] = _counts()
         _sync()
     events = sorted((e for e in prof.events()
                      if e.device_type == torch.autograd.DeviceType.CUDA),
                     key=lambda e: e.time_range.start)
-    names, seen = iter(calls), {}
+    names, seen, sleep_ms = iter(calls), {}, {}
     for e in events:
         if "spin_kernel" in e.name or "sleep" in e.name.lower():
-            seen[next(names)] = []
+            key = next(names)
+            seen[key] = []
+            sleep_ms[key] = e.time_range.elapsed_us() / 1e3
         elif seen:
             seen[list(seen)[-1]].append(e)
     out = {}
@@ -1014,8 +1058,16 @@ def _kernels_a_call() -> dict:
         if not kernels:
             raise AssertionError(f"one call of {name} at {where} showed "
                                  "no CUDA kernel")
-        out[name] = dict(kernels=len(kernels), busy_ms=sum(
-            e.time_range.elapsed_us() for e in kernels) / 1e3)
+        out[name] = dict(
+            kernels=len(kernels),
+            busy_ms=sum(e.time_range.elapsed_us() for e in kernels) / 1e3,
+            span_ms=(max(e.time_range.end for e in kernels)
+                     - min(e.time_range.start for e in kernels)) / 1e3,
+            hand=dict(collections.Counter(
+                e.name for e in kernels
+                if any(h in e.name for h in HAND_KERNELS))),
+            launched=launched[name], host_ms=host_ms[name],
+            device_only=host_ms[name] < sleep_ms[name])
         print(f"# kernels a call: {name} at {where} launches "
               f"{out[name]['kernels']} CUDA kernels, "
               f"{out[name]['busy_ms']:.3f} ms of them on the device",
@@ -1160,7 +1212,7 @@ def phase_step_parity() -> float:
         ("8-env mega-scene, sap (K6 + K1)", k6_envs,
          rollout(mega6.build("cpu"), k6_envs, 4), ("K1", "K6")),
     )
-    worst = 0.0
+    worst, traced = 0.0, []
     for what, cfg, st, kernels in cases:
         for frame in range(10):
             _reset_counts()
@@ -1191,9 +1243,14 @@ def phase_step_parity() -> float:
         print(f"# step parity: {what}, 10 frames, card vs CPU: integers "
               f"equal, max float diff so far {worst}", flush=True)
         # the frame captured (a warm-up frame and 2 replays), then two
-        # replays of it against two uncaptured steps
+        # replays of it against two uncaptured steps; the frame's replays
+        # traced by the profiler (one scene a configuration: the loaded
+        # bridge shares the chain's)
         card = rollout(state_from_numpy(state_to_numpy(st), "cuda"), cfg, 3)
         _replay_equals_steps(card, cfg, what)
+        if all(c != cfg for _, c, _ in traced):
+            _trace(what, card, cfg, kernels)
+            traced.append((what, cfg, card))
         release_graphs()
     return worst
 
@@ -1207,10 +1264,10 @@ def _bits(t):
 
 def _replay_equals_steps(st, cfg, what: str) -> dict:
     """Two graph replays of ``cfg``'s captured frame (``rollout``, which
-    must hold it already: the call replays both frames) against two
-    uncaptured steps from the same state: every State tensor equal to the
-    bit, the launch counts equal.  Returns the graph's record
-    (``graph_info``) and the launches a frame."""
+    must hold it already: the call replays both frames and no wrapper
+    launches) against two uncaptured steps from the same state: every
+    State tensor equal to the bit.  Returns the graph's pool bytes
+    (``graph_info``)."""
     import dataclasses
     import torch
     from phyx_tpu_torch.step import _GRAPHS, graph_info, rollout, step
@@ -1218,13 +1275,10 @@ def _replay_equals_steps(st, cfg, what: str) -> dict:
         raise AssertionError(f"{what}: no captured frame to replay")
     _reset_counts()
     replayed = rollout(st, cfg, 2)
-    by_replay = _counts()
-    _reset_counts()
+    if any(_counts().values()):
+        raise AssertionError(f"{what}: two replays launched {_counts()} "
+                             "outside the graph")
     stepped = step(step(st, cfg), cfg)
-    by_step = _counts()
-    if by_replay != by_step:
-        raise AssertionError(f"{what}: launches {by_replay} in two replays, "
-                             f"{by_step} in two steps")
     for rec in dataclasses.fields(stepped):
         a, b = getattr(replayed, rec.name), getattr(stepped, rec.name)
         for f in dataclasses.fields(a):
@@ -1234,9 +1288,9 @@ def _replay_equals_steps(st, cfg, what: str) -> dict:
                                      "replays differs from two steps")
     info = next(g for g in graph_info() if g["cfg"] == cfg)
     print(f"# graph replay: {what}: two replays == two uncaptured steps, "
-          f"every State tensor to the bit, launches {by_step}; the graph's "
-          f"pool {info['pool_bytes'] / 2**20:.1f} MiB", flush=True)
-    return dict(pool_bytes=info["pool_bytes"], launches_two_frames=by_step)
+          f"every State tensor to the bit; the graph's pool "
+          f"{info['pool_bytes'] / 2**20:.1f} MiB", flush=True)
+    return dict(pool_bytes=info["pool_bytes"])
 
 
 def _kernel_ms(wrapper, args, reps: int) -> float:
@@ -1395,9 +1449,13 @@ def _drive(scene: str, boxes: int, settle: int, kernels: tuple, card: str,
     bench.py's build() of ``scene``), frees every captured frame of the
     scenes before, settles it through ``rollout`` (a graph replay: one
     uncaptured frame, the capture, replays) with every synchronising call
-    an error, calls ``after_settle(state, cfg)`` where given (its result
-    goes into the record as ``after_settle``), then times frames
-    (``_timed``).  Returns (state, cfg, dict of the run's numbers)."""
+    an error and the launch counts zeroed just before and read just after:
+    the warm-up frame launches each kernel of ``kernels`` once, and the
+    replays no wrapper (their launches are read from the profiler's trace,
+    ``_replays_traced``); calls ``after_settle(state, cfg)`` where given
+    (its result goes into the record as ``after_settle``), then times
+    frames (``_timed``).  Returns (state, cfg, dict of the run's
+    numbers)."""
     import torch
     from phyx_tpu_torch import scenes
     from phyx_tpu_torch.step import release_graphs, rollout
@@ -1409,6 +1467,7 @@ def _drive(scene: str, boxes: int, settle: int, kernels: tuple, card: str,
     else:
         cfg, st = built
     _sync()
+    _reset_counts()
     t0 = time.perf_counter()
     # a step must not wait for the device: any synchronizing call raises
     torch.cuda.set_sync_debug_mode("error")
@@ -1418,6 +1477,10 @@ def _drive(scene: str, boxes: int, settle: int, kernels: tuple, card: str,
         torch.cuda.set_sync_debug_mode("default")
     _sync()
     settle_s = time.perf_counter() - t0
+    launched = _counts()
+    if launched != {k: int(k in kernels) for k in launched}:
+        raise AssertionError(f"{scene} settle: launches {launched}, expected "
+                             f"{kernels} once (the warm-up frame)")
     extra = {} if after_settle is None else dict(
         after_settle=after_settle(st, cfg))
     st, out = _timed(st, cfg, kernels, both_ways)
@@ -1442,8 +1505,9 @@ def _slope(run, st, cfg, n: int, kernels: tuple, what: str,
     first window after the probe can carry a one-off cost, which would
     lower the slope), the launch counts zeroed just before and read just
     after: each kernel named in ``kernels`` must launch once a frame, every
-    other never.  Returns (state, ms a frame, dict of the windows' seconds
-    and the launches)."""
+    other never (replays pass none: they launch from the graph, past every
+    wrapper).  Returns (state, ms a frame, dict of the windows' seconds
+    and the counted launches)."""
     st = run(st, cfg, warmup or n)
     _sync()
     _reset_counts()
@@ -1457,14 +1521,14 @@ def _slope(run, st, cfg, n: int, kernels: tuple, what: str,
     launches = _counts()
     if launches != {k: 3 * n if k in kernels else 0 for k in launches}:
         raise AssertionError(f"{what}: launches {launches} in {3 * n} "
-                             f"frames, expected {' and '.join(kernels)} "
-                             "once a frame and no other kernel")
+                             f"frames, expected {kernels} once a frame and "
+                             "no other kernel")
     per_frame = ((t2 - t1) - (t1 - t0)) / n
     if not per_frame > 0.0:
         raise AssertionError(f"{what}: slope timing not positive: "
                              f"t(n)={t1 - t0}, t(2n)={t2 - t1}")
     return st, per_frame * 1e3, dict(t_n_s=t1 - t0, t_2n_s=t2 - t1,
-                                     launches=launches)
+                                     launches_counted=launches)
 
 
 # seconds of the 3n frames a slope times
@@ -1514,7 +1578,7 @@ def _timed(st, cfg, kernels: tuple, both_ways: bool = False,
     else:
         st, n = _probe(rollout, st, cfg)
         probe, warmup = 2, n
-    st, ms, rec = _slope(rollout, st, cfg, n, kernels, "replayed", warmup)
+    st, ms, rec = _slope(rollout, st, cfg, n, (), "replayed", warmup)
     out = dict(steps_per_s=1e3 / ms, frame_ms=ms,
                host_ms_replayed=_host_ms_replayed(st, cfg),
                frames_timed=3 * n, frames_total=probe + warmup + 3 * n,
@@ -1541,44 +1605,127 @@ def _timed(st, cfg, kernels: tuple, both_ways: bool = False,
     return st, out
 
 
-# each timed scene's record by label, and its settled state and
-# configuration: one uncaptured step of each goes into the profiler's
-# session (``_FRAMES``) for its device busy time (``_frames_summary``)
+# each timed scene's record by label (``_frames_summary``)
 _TIMED: dict = {}
+# each traced scene by label: (the kernels its frame launches once each,
+# the entries of ``_FRAMES`` that make up one uncaptured frame, the entry
+# of its replays)
+_TRACED: dict = {}
+# graph replays of each traced scene in the profiler's session
+TRACED_REPLAYS = 3
 
 
-def _register(label: str, out: dict, st, cfg, stages: tuple = ()) -> None:
-    """Keeps the record ``out`` of a timed scene under ``label`` and hands
-    one uncaptured step of its state to the profiler's session, or where
-    ``stages`` names entries of ``_FRAMES`` that make up its frame (the
-    colored frames' three stages), takes its busy time from those."""
-    from phyx_tpu_torch.step import step
-    _TIMED[label] = (out, stages or (f"{label}: step",))
+def _trace(label: str, st, cfg, kernels: tuple, stages: tuple = ()) -> None:
+    """Hands the profiler's session (``_FRAMES``) one uncaptured ``step``
+    of ``st`` (or, where ``stages`` names entries of ``_FRAMES`` that make
+    up its frame, those) and one ``rollout`` of ``TRACED_REPLAYS`` graph
+    replays from ``st``, for ``_replays_traced``."""
+    from phyx_tpu_torch.step import rollout, step
     if not stages:
-        _FRAMES[f"{label}: step"] = (f"the settled {label}",
-                                     lambda: step(st, cfg))
+        stages = (f"{label}: step",)
+        _FRAMES[stages[0]] = (f"the settled {label}", lambda: step(st, cfg))
+    _FRAMES[f"{label}: replays"] = (
+        f"the settled {label}, {TRACED_REPLAYS} graph replays",
+        lambda: rollout(st, cfg, TRACED_REPLAYS))
+    _TRACED[label] = (kernels, stages, f"{label}: replays")
 
 
-def _frames_summary(a_call: dict) -> dict:
-    """Each timed scene's frame both ways: steps/s and ms a frame
-    replayed and uncaptured, the host's ms a frame (replayed: queuing
-    replays; uncaptured: queuing a frame behind a sleep kernel, or for the
-    colored frames with none ahead), the CUDA kernels of one step and
-    their device busy ms (torch.profiler), and the device's idle share of
-    each way's frame, 1 - busy / frame."""
+def _register(label: str, out: dict, st, cfg, kernels: tuple,
+              stages: tuple = ()) -> None:
+    """Keeps the record ``out`` of a timed scene under ``label`` and
+    traces its frame (``_trace``)."""
+    _trace(label, st, cfg, kernels, stages)
+    _TIMED[label] = out
+
+
+def _marks(hand: dict) -> dict:
+    """The wrappers' launches in a trace: the count of each wrapper's
+    mark kernel (``LAUNCH_MARKS``) among ``hand``'s kernel counts."""
+    return {k: sum(c for name, c in hand.items()
+                   if all(part in name for part in parts))
+            for k, parts in LAUNCH_MARKS.items()}
+
+
+def _replays_traced(a_call: dict) -> dict:
+    """For each traced scene, from the profiler's one session: its
+    uncaptured frame launches each kernel of its path once by the
+    wrappers' counts and by the trace (which holds the mark kernels'
+    names to the counts); the graph replays launch no wrapper, and the
+    trace shows each hand-written CUDA kernel ``TRACED_REPLAYS`` times as
+    often as in the uncaptured frame.  Returns, by scene, the kernels'
+    launches in the replays (from the trace), and the replayed frame's
+    device busy ms, span ms and idle share (1 - busy / span) over the
+    rollout call (its copies of the state in and out included)."""
     out = {}
-    for label, (rec, keys) in _TIMED.items():
+    for label, (kernels, stages, replays) in _TRACED.items():
+        launched, hand = dict.fromkeys(LAUNCH_MARKS, 0), {}
+        for key in stages:
+            for k, c in a_call[key]["launched"].items():
+                launched[k] += c
+            for name, c in a_call[key]["hand"].items():
+                hand[name] = hand.get(name, 0) + c
+        rec = a_call[replays]
+        marks = _marks(rec["hand"])
+        if launched != {k: int(k in kernels) for k in launched}:
+            raise AssertionError(f"{label}: an uncaptured frame launched "
+                                 f"{launched}, expected {kernels} once")
+        if _marks(hand) != launched:
+            raise AssertionError(f"{label}: the trace of an uncaptured frame "
+                                 f"shows {_marks(hand)}, the wrappers "
+                                 f"counted {launched}: {hand}")
+        if any(rec["launched"].values()):
+            raise AssertionError(f"{label}: graph replays launched "
+                                 f"{rec['launched']} by wrappers")
+        if rec["hand"] != {n: TRACED_REPLAYS * c for n, c in hand.items()}:
+            raise AssertionError(
+                f"{label}: {TRACED_REPLAYS} graph replays ran {rec['hand']}, "
+                f"an uncaptured frame {hand}")
+        out[label] = dict(
+            launches=marks, replays=TRACED_REPLAYS,
+            device_busy_ms=rec["busy_ms"] / TRACED_REPLAYS,
+            device_span_ms=rec["span_ms"] / TRACED_REPLAYS,
+            idle_share=1.0 - rec["busy_ms"] / rec["span_ms"],
+            kernels_a_frame=rec["kernels"] / TRACED_REPLAYS,
+            device_only=rec["device_only"])
+        print(f"# traced replays: {label}: {TRACED_REPLAYS} replays ran "
+              f"{ {k: v for k, v in marks.items() if v} } (each hand-written "
+              f"kernel {TRACED_REPLAYS} x an uncaptured frame's); "
+              f"{out[label]['device_busy_ms']:.3f} ms busy in "
+              f"{out[label]['device_span_ms']:.3f} ms a frame, idle share "
+              f"{out[label]['idle_share']:.4f}", flush=True)
+    return out
+
+
+def _frames_summary(a_call: dict, traced: dict) -> dict:
+    """Each timed scene's frame both ways: steps/s and ms a frame
+    replayed and uncaptured (the slopes), the host's ms a frame
+    (replayed: queuing replays; uncaptured: queuing a frame behind a
+    sleep kernel, or for the colored frames with none ahead); replayed,
+    from the profiler's trace of graph replays (``_replays_traced``): the
+    CUDA kernels, device busy ms, device span ms and idle share of a
+    frame; uncaptured: the CUDA kernels and device busy ms of one profiled
+    step against the uncaptured slope's frame, idle share 1 - busy /
+    frame."""
+    out = {}
+    for label, rec in _TIMED.items():
+        keys = _TRACED[label][1]
         busy = sum(a_call[k]["busy_ms"] for k in keys)
+        t = traced[label]
         row = dict(steps_per_s=rec["steps_per_s"], frame_ms=rec["frame_ms"],
                    host_ms_replayed=rec["host_ms_replayed"],
-                   kernels_a_frame=sum(a_call[k]["kernels"] for k in keys),
-                   device_busy_ms=busy,
-                   idle_share=1.0 - busy / rec["frame_ms"])
+                   kernels_a_frame=t["kernels_a_frame"],
+                   device_busy_ms=t["device_busy_ms"],
+                   device_span_ms=t["device_span_ms"],
+                   idle_share=t["idle_share"],
+                   device_only=t["device_only"])
         if "frame_ms_uncaptured" in rec:
             row.update(
                 steps_per_s_uncaptured=rec["steps_per_s_uncaptured"],
                 frame_ms_uncaptured=rec["frame_ms_uncaptured"],
                 host_ms_uncaptured=rec["host_enqueue_ms"],
+                kernels_a_frame_uncaptured=sum(a_call[k]["kernels"]
+                                               for k in keys),
+                device_busy_ms_uncaptured=busy,
                 idle_share_uncaptured=1.0 - busy
                 / rec["frame_ms_uncaptured"])
         out[label] = row
@@ -1884,7 +2031,7 @@ def phase_pile10k(card: str) -> dict:
     st, stages = _stage_ms(st, cfg, frames=3)
     _checked_rate(out, stages)
     replay = _replay_equals_steps(st, cfg, "the settled 10k pile")
-    _register("pile 10000", out, st, cfg)
+    _register("pile 10000", out, st, cfg, ("K1",))
     k = _kernel_at_frame(st, cfg, w["K1"], "K1")
     lv = _k1_level_checks(k, "the settled 10k frame")
     k6 = _sap_equals_grid(st, cfg)
@@ -1896,7 +2043,7 @@ def phase_pile10k(card: str) -> dict:
                k1_levels=lv, k6_device_ms_sap=k6["ms"],
                k6_pairs_sap=k6["emitted"])
     print(json.dumps(out), flush=True)
-    return dict(k, launches=out["launches"]["K1"], k6=k6, **lv)
+    return dict(k, k6=k6, **lv)
 
 
 def _k2_at_frame(st, cfg, what: str) -> dict:
@@ -1961,7 +2108,7 @@ def phase_chain(card: str) -> dict:
     st, stages = _stage_ms(st, cfg, frames=3)
     _checked_rate(out, stages)
     replay = _replay_equals_steps(st, cfg, "the settled chain")
-    _register("chain 1000", out, st, cfg)
+    _register("chain 1000", out, st, cfg, ("K2",))
     k = _k2_at_frame(st, cfg, "the chain frame")
     k1_ms = k["k1_ms_full_solve"]
     out.update(metric="steps/s @ 1000-link chain (port, H100 path)",
@@ -1973,7 +2120,7 @@ def phase_chain(card: str) -> dict:
                k2_levels=k["levels"], k2_prepass_ms=k["prepass_ms"],
                solve_share_of_frame=k["ms_full_solve"] / out["frame_ms"])
     print(json.dumps(out), flush=True)
-    return dict(k, launches=out["launches"]["K2"])
+    return k
 
 
 def phase_pile1k(card: str) -> dict:
@@ -1990,7 +2137,7 @@ def phase_pile1k(card: str) -> dict:
     st, stages = _stage_ms(st, cfg, frames=3)
     _checked_rate(out, stages)
     replay = _replay_equals_steps(st, cfg, "the settled 1k pile")
-    _register("pile 1000", out, st, cfg)
+    _register("pile 1000", out, st, cfg, ("K2",))
     k = _k2_at_frame(st, cfg, "the 1k pile frame")
     out.update(metric="steps/s @ 1000-box pile (port, H100 path)",
                penetration_ratio=pen_ratio, stage_device_ms=stages,
@@ -2001,7 +2148,7 @@ def phase_pile1k(card: str) -> dict:
                k2_levels=k["levels"], k2_prepass_ms=k["prepass_ms"],
                solve_share_of_frame=k["ms_full_solve"] / out["frame_ms"])
     print(json.dumps(out), flush=True)
-    return dict(k, launches=out["launches"]["K2"])
+    return k
 
 
 # the reference's 20k slab-major run (BENCH_QUEUE_r5.log:149, TPU v5e): a
@@ -2030,7 +2177,7 @@ def phase_pile20k(card: str) -> dict:
     st, stages = _stage_ms(st, cfg, frames=3)
     _checked_rate(out, stages)
     replay = _replay_equals_steps(st, cfg, "the settled 20k pile")
-    _register("pile 20000", out, st, cfg)
+    _register("pile 20000", out, st, cfg, ("K3",))
 
     # K3 against the serial plain version at the frame's shapes: the warm
     # pass and one velocity pass (it launches one op per scalar operation)
@@ -2104,7 +2251,7 @@ def phase_pile20k(card: str) -> dict:
                reference_fingerprint=REF_20K)
     print(json.dumps(out), flush=True)
     return dict(
-        k3=dict(k3, launches=out["launches"]["K3"], max_abs_err=err,
+        k3=dict(k3, max_abs_err=err,
                 plain_ms=plain_ms, ms=ms_short, **_bound_slabs(short, walked),
                 contacts=out["num_contacts"], joints=0),
         k5=dict(k5, launches=k5_launches["K5"], max_abs_err=k5_err,
@@ -2196,7 +2343,7 @@ def phase_envs1024(card: str) -> dict:
     st, stages = _stage_ms(st, cfg, frames=3)
     _checked_rate(out, stages)
     replay = _replay_equals_steps(st, cfg, f"the settled {ENVS}-env frame")
-    _register(f"envs {ENVS}", out, st, cfg)
+    _register(f"envs {ENVS}", out, st, cfg, ("K3", "K4"))
     lo, hi = compute_aabbs(st.bodies)
     args = _sap_tiled_sort_stage(st.bodies, cfg, lo, hi)[0]
     err, counts, plain_ms = _compare_sweep(args)
@@ -2230,7 +2377,7 @@ def phase_envs1024(card: str) -> dict:
                k3_ns_per_level=k3["ns_per_level"],
                reference_fingerprint=REF_E)
     print(json.dumps(out), flush=True)
-    return dict(launches=out["launches"]["K4"], max_abs_err=err,
+    return dict(max_abs_err=err,
                 env_steps_per_s=out["env_steps_per_s"],
                 ms=device["device_ms"], plain_ms=plain_ms,
                 emitted=counts["num"], wrapper_ms=wrapper_ms,
@@ -2238,8 +2385,7 @@ def phase_envs1024(card: str) -> dict:
                                           "device_only")},
                 **{f"{k}_versus_parent": v for k, v in parent.items()},
                 **bound,
-                k3={f"{key}_envs1024": v for key, v in dict(
-                    k3, launches=out["launches"]["K3"]).items()})
+                k3={f"{key}_envs1024": v for key, v in k3.items()})
 
 
 def _envs_bar(out: dict, envs: int) -> float:
@@ -2271,7 +2417,7 @@ def phase_envs64(card: str, envs1024: dict) -> dict:
     st, stages = _stage_ms(st, cfg, frames=3)
     _checked_rate(out, stages, null_below=True)
     replay = _replay_equals_steps(st, cfg, f"the settled {n_envs}-env frame")
-    _register(f"envs {n_envs}", out, st, cfg)
+    _register(f"envs {n_envs}", out, st, cfg, ("K1", "K6"))
     k6_args = sap_kernel_inputs(integrate_velocities(st.bodies, cfg),
                                 cfg.max_pairs, True)
     k6 = _emit_at("K6", k6_args, f"the settled {n_envs}-env frame", True)
@@ -2316,10 +2462,9 @@ def phase_envs64(card: str, envs1024: dict) -> dict:
                k1_ns_per_visit=k1_ms * 1e6 / k1_visits, k1_levels=lv,
                reference_fingerprint=REF_E, cut="none (bench.py's default)")
     print(json.dumps(out), flush=True)
-    return dict(k6, launches=out["launches"]["K6"], max_abs_err_cut=cut_err,
+    return dict(k6, max_abs_err_cut=cut_err,
                 ovf_cut=cut_counts["ovf"], max_pairs_cut=cut["max_pairs"],
                 **{f"{k}_versus_parent": v for k, v in parent.items()}, k1={
-        "launches_envs64": out["launches"]["K1"],
         "max_abs_err_envs64": k1_err, "ms_envs64": k1_ms_short,
         "plain_ms_envs64": k1_plain_ms,
         "bound_ms_envs64": _bound(k1_short)["bound_ms"],
@@ -2373,7 +2518,7 @@ def phase_pile500(card: str) -> dict:
     st, stages = _stage_ms(st, cfg, frames=3)
     _checked_rate(out, stages)
     replay = _replay_equals_steps(st, cfg, "the settled 500-box pile")
-    _register("pile 500 sap", out, st, cfg)
+    _register("pile 500 sap", out, st, cfg, ("K2", "K7"))
     k7_args = sap_kernel_inputs(integrate_velocities(st.bodies, cfg),
                                 cfg.max_pairs, False)
     k7 = _emit_at("K7", k7_args, "the settled 500-box frame", False)
@@ -2399,12 +2544,10 @@ def phase_pile500(card: str) -> dict:
                k1_ms_full_solve=k2["k1_ms_full_solve"],
                k2_levels=k2["levels"], k2_prepass_ms=k2["prepass_ms"])
     print(json.dumps(out), flush=True)
-    return dict(k7, launches=out["launches"]["K7"],
-                max_abs_err_cut=cut_err, ovf_cut=cut_counts["ovf"],
+    return dict(k7, max_abs_err_cut=cut_err, ovf_cut=cut_counts["ovf"],
                 max_abs_err_counts_device_memory=dev_err,
                 max_pairs_cut=cut["max_pairs"],
-                k2=dict(launches_pile500=out["launches"]["K2"], **{
-                    f"{key}_pile500": k2[key] for key in _K2_KEYS}))
+                k2={f"{key}_pile500": k2[key] for key in _K2_KEYS})
 
 
 # bench row D's sizes by bench.py's build() (8 pairs a box, rounded up to
@@ -2429,9 +2572,11 @@ def phase_avalanche(card: str, boxes: int, settle: int,
     (bench.py:358-375: ``rollout_autotuned`` in chunks of 10, each retune
     printed as bench.py prints it; on the card each configuration is a
     captured graph, the one left freed).  Every retune keeps the contact
-    slots in whole 1024-slot blocks, so the tier stays; K3 launches once a
-    frame of the settle and no other kernel.  Then frames timed both ways
-    on the final configuration (``_timed``, K3 once a frame), bench.py's
+    slots in whole 1024-slot blocks, so the tier stays; the settle's
+    wrappers launch K3 once a configuration (its warm-up frame) and no
+    other kernel, the rest of its frames being replays (whose launches the
+    profiler's trace reads, ``_replays_traced``).  Then frames timed both
+    ways on the final configuration (``_timed``), bench.py's
     quality bar (penetration ratio <= 2.0, every ``ovf_*`` 0), stage times,
     two replays against two steps, the policies' host time at the settled
     state, and K3 at the settled frame: against its levels plain version
@@ -2476,15 +2621,17 @@ def phase_avalanche(card: str, boxes: int, settle: int,
     _sync()
     settle_s = time.perf_counter() - t0
     launches = _counts()
-    if launches != {k: settle if k == "K3" else 0 for k in launches}:
+    configs = 1 + len(retunes)
+    if launches != {k: configs if k == "K3" else 0 for k in launches}:
         raise AssertionError(f"avalanche {boxes} settle: launches "
-                             f"{launches} in {settle} frames")
+                             f"{launches}, expected K3 once for each of "
+                             f"{configs} configurations")
     if len(graph_info()) > 1:
         raise AssertionError(f"graphs of left configurations kept: "
                              f"{graph_info()}")
     print(f"# avalanche {boxes}: {settle}-frame autotuned settle in "
-          f"{settle_s:.1f} s, {len(retunes)} retunes, K3 once a frame",
-          flush=True)
+          f"{settle_s:.1f} s, {len(retunes)} retunes, K3 launched by its "
+          f"wrapper once a configuration", flush=True)
     # the policies' host time at the settled state (suggest_sap_hits is a
     # loop over the rows in Python, as in the reference)
     t1 = time.perf_counter()
@@ -2515,7 +2662,7 @@ def phase_avalanche(card: str, boxes: int, settle: int,
     _checked_rate(out, stages)
     what = f"the settled {boxes // 1000}k avalanche"
     replay = _replay_equals_steps(st, cfg, what)
-    _register(f"avalanche {boxes}", out, st, cfg)
+    _register(f"avalanche {boxes}", out, st, cfg, ("K3",))
 
     # K3 at the settled frame: its levels plain version on warm + 1
     # velocity pass, its level schedule, timed on those and on all passes
@@ -2540,8 +2687,7 @@ def phase_avalanche(card: str, boxes: int, settle: int,
              ns_per_level=(ms_full - lv["prepass_ms"]) * 1e6
              / max(1, passes * lv["levels"]),
              level_widths={x: lv[x] for x in ("width_p50", "width_p90",
-                                              "width_p99", "width_max")},
-             launches=out["launches"]["K3"])
+                                              "width_p99", "width_max")})
     print(f"# K3 at {what}: {walked} slots in {lv['levels']} levels a pass "
           f"(widths p50 {lv['width_p50']}, max {lv['width_max']}); warm + 1 "
           f"velocity pass {ms_short:.4f} ms, full solve {ms_full:.4f} ms, "
@@ -2846,7 +2992,7 @@ def _colored_scene(scene: str, boxes: int, settle: int, card: str,
         bodies, contacts, pairs, st.joints, jrows, jwarm, cfg))
     _FRAMES[f"{scene} xla finish_stage"] = (where, lambda: finish_stage(
         st, cfg, solved[0], solved[4], solved[5], contacts, *solved[1:4]))
-    _register(f"{scene} {boxes} xla", out, st, cfg, stages=tuple(
+    _register(f"{scene} {boxes} xla", out, st, cfg, (), stages=tuple(
         f"{scene} xla {s}" for s in ("contact_stage", "solve_stage",
                                      "finish_stage")))
     for part, fn in _colored_parts(bodies, contacts, st.joints, jrows,
@@ -2902,10 +3048,12 @@ def _colored_fallback_frame() -> float:
     return worst
 
 
-def _colored_summary(colored: dict, a_call: dict) -> dict:
-    """The colored scenes' frames: the stages' CUDA kernels and device
-    busy ms (torch.profiler) beside the replayed slope's frame ms, and the
-    device's idle share of the frame (both ways: ``_frames_summary``)."""
+def _colored_summary(colored: dict, a_call: dict, traced: dict) -> dict:
+    """The colored scenes' frames: the uncaptured stages' CUDA kernels and
+    device busy ms (torch.profiler), and the replayed frame's kernels,
+    busy ms and idle share from the trace of its graph replays
+    (``_replays_traced``), beside the replayed slope's frame ms (both
+    ways: ``_frames_summary``)."""
     out = {}
     for key, scene in (("pile10k", "pile"), ("chain", "chain")):
         rec = colored[key]
@@ -2914,13 +3062,17 @@ def _colored_summary(colored: dict, a_call: dict) -> dict:
         busy = sum(v["busy_ms"] for v in stages.values())
         parts = {k[len(f"{scene} xla solve: "):]: v for k, v in a_call.items()
                  if k.startswith(f"{scene} xla solve: ")}
+        t = traced[f"{scene} {rec['boxes']} xla"]
         out[key] = dict(
             steps_per_s=rec["steps_per_s"], frame_ms=rec["frame_ms"],
             host_enqueue_ms=rec["stage_event_ms"]["host_enqueue"],
             stage_event_ms=rec["stage_event_ms"], stages=stages,
             solve_parts=parts,
             kernels_a_frame=sum(v["kernels"] for v in stages.values()),
-            device_busy_ms=busy, idle_share=1.0 - busy / rec["frame_ms"])
+            device_busy_ms=busy,
+            kernels_a_replayed_frame=t["kernels_a_frame"],
+            device_busy_ms_replayed=t["device_busy_ms"],
+            idle_share=t["idle_share"])
     return out
 
 
@@ -2943,12 +3095,12 @@ def phase_colored(card: str) -> dict:
     return out
 
 
-def _row(name, source, replaces, k, timed, **extra) -> dict:
-    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "ms_full_solve", "bound_ms_full_solve",
-            "ns_per_visit")
+def _row(name, source, replaces, launches, k, timed, **extra) -> dict:
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "ms_full_solve", "bound_ms_full_solve", "ns_per_visit")
     return dict(name=name, route="cuda", source=source, replaces=replaces,
-                **{key: k[key] for key in keys}, library_ms=None,
+                launches=launches, **{key: k[key] for key in keys},
+                library_ms=None,
                 timed=timed, **extra)
 
 
@@ -2960,14 +3112,14 @@ _K2_KEYS = ("max_abs_err", "max_abs_err_k1", "ms", "plain_ms", "bound_ms",
             "k1_ms_full_solve", "layout")
 
 
-def _emit_row(name, replaces, k, small, timed, **extra) -> dict:
+def _emit_row(name, replaces, launches, k, small, timed, **extra) -> dict:
     """The kernels line's row of K6 or K7: ``k`` from its main path,
     ``small`` from the small inputs."""
-    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     return dict(name=name, route="cuda",
                 source="phyx_tpu_torch/csrc/sweep_emit.cu",
-                replaces=replaces, **{key: k[key] for key in keys},
+                replaces=replaces, launches=launches,
+                **{key: k[key] for key in keys},
                 library_ms=None, timed=timed,
                 **{f"{key}_small_frames": small[key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms")},
@@ -3010,7 +3162,7 @@ def main() -> int:
     phase_step_parity()
     lap("compare")
     if opts.quick:
-        _kernels_a_call()
+        _replays_traced(_kernels_a_call())
         return 0
     pile = phase_pile10k(card)
     lap("pile10k")
@@ -3035,10 +3187,17 @@ def main() -> int:
     lap("colored")
     release_graphs()
     a_call = _kernels_a_call()
+    traced = _replays_traced(a_call)
     lap("profiler")
-    print(json.dumps({"colored": _colored_summary(colored, a_call)}),
+    print(json.dumps({"colored": _colored_summary(colored, a_call, traced)}),
           flush=True)
-    print(json.dumps({"frames": _frames_summary(a_call)}), flush=True)
+    print(json.dumps({"frames": _frames_summary(a_call, traced)}),
+          flush=True)
+
+    def launches(label: str, name: str) -> int:
+        # the kernel's launches in the traced graph replays of a scene
+        return traced[label]["launches"][name]
+
     passes = "warm + 1 velocity + 1 displacement pass"
     k3, k5 = pile20k["k3"], pile20k["k5"]
     # the tiled kernels' level schedule at the 20k frame
@@ -3053,7 +3212,8 @@ def main() -> int:
     kernels = [
         _row("contact_solver_streamed (K1)",
              "phyx_tpu_torch/csrc/contact_solver_streamed.cu",
-             "phyx_tpu/kernels/contact_solver_streamed.py:58", pile,
+             "phyx_tpu/kernels/contact_solver_streamed.py:58",
+             launches("pile 10000", "K1"), pile,
              f"{passes} at the 10k pile frame",
              max_abs_err_small_frames=small["K1"],
              ms_full_solve_chain_frame=chain["k1_ms_full_solve"],
@@ -3063,39 +3223,46 @@ def main() -> int:
                  "max_abs_err_levels_plain", "levels_plain_ms",
                  "max_abs_err_device_memory",
                  "ms_full_solve_device_memory")},
-             **envs64["k1"]),
+             launches_envs64=launches("envs 64", "K1"), **envs64["k1"]),
         _row("contact_solver (K2)", "phyx_tpu_torch/csrc/contact_solver.cu",
-             "phyx_tpu/kernels/contact_solver.py:50", chain,
+             "phyx_tpu/kernels/contact_solver.py:50",
+             launches("chain 1000", "K2"), chain,
              f"{passes} at the 1000-link chain frame",
              max_abs_err_small_frames=small["K2"],
              joints=chain["joints"],
              **{key: chain[key] for key in _K2_KEYS if key not in (
                  "max_abs_err", "ms", "plain_ms", "bound_ms",
                  "ms_full_solve", "ns_per_visit")},
-             launches_pile1k=pile1k["launches"],
+             launches_pile1k=launches("pile 1000", "K2"),
              **{f"{key}_pile1k": pile1k[key] for key in _K2_KEYS},
+             launches_pile500=launches("pile 500 sap", "K2"),
              **pile500["k2"]),
         _row("contact_solver_tiled2 (K3)",
              "phyx_tpu_torch/csrc/contact_solver_tiled.cu",
-             "phyx_tpu/kernels/contact_solver_tiled2.py:68", k3,
+             "phyx_tpu/kernels/contact_solver_tiled2.py:68",
+             launches("pile 20000", "K3"), k3,
              "warm + 1 velocity pass at the 20k pile frame",
              **small_tiled["K3"], contacts=k3["contacts"],
-             **{key: k3[key] for key in tiled_keys}, **envs["k3"],
+             **{key: k3[key] for key in tiled_keys},
+             launches_envs1024=launches(f"envs {ENVS}", "K3"), **envs["k3"],
+             launches_avalanche20k=launches("avalanche 20000", "K3"),
+             launches_avalanche100k=launches("avalanche 100000", "K3"),
              **{f"{key}_{name}": v for name, rec in (
                  ("avalanche20k", aval20k), ("avalanche100k", aval100k))
                 for key, v in rec["k3"].items()}),
         _row("contact_solver_tiled (K5)",
              "phyx_tpu_torch/csrc/contact_solver_tiled.cu",
-             "phyx_tpu/kernels/contact_solver_tiled.py:57", k5,
+             "phyx_tpu/kernels/contact_solver_tiled.py:57", k5["launches"],
+             k5,
              "warm + 1 velocity pass at the 20k pile frame's routed rows",
              **small_tiled["K5"], small_frame=tiled["K5"]["frame"],
              **{key: k5[key] for key in tiled_keys}),
         dict(name="sweep_tiled (K4)", route="cuda",
              source="phyx_tpu_torch/csrc/sweep_tiled.cu",
              replaces="phyx_tpu/kernels/sweep.py:114",
-             **{key: envs[key] for key in ("launches", "max_abs_err", "ms",
-                                           "plain_ms", "bound_ms",
-                                           "bound_by")},
+             launches=launches(f"envs {ENVS}", "K4"),
+             **{key: envs[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                           "bound_ms", "bound_by")},
              library_ms=None,
              timed=f"the settled {ENVS}-env frame, device time of its "
                    "one launch",
@@ -3107,7 +3274,7 @@ def main() -> int:
                 or key.endswith("_versus_parent")},
              kernels_a_call=a_call["K4"], emitted_pairs=envs["emitted"]),
         _emit_row("sweep_emit_v2 (K6)", "phyx_tpu/kernels/sweep.py:371",
-                  envs64, emit_small["K6"],
+                  launches("envs 64", "K6"), envs64, emit_small["K6"],
                   "the settled 64-env frame, device time of its one "
                   "launch", kernels_a_call=a_call["K6"],
                   launches_pile10k_check=pile["k6"]["sap_launches"], **{
@@ -3118,7 +3285,7 @@ def main() -> int:
                       "max_abs_err_cut", "ovf_cut", "max_pairs_cut")
                      or key.endswith("_versus_parent")}),
         _emit_row("sweep_emit (K7)", "phyx_tpu/kernels/sweep.py:36",
-                  pile500, emit_small["K7"],
+                  launches("pile 500 sap", "K7"), pile500, emit_small["K7"],
                   "the settled 500-box frame, device time of its one "
                   "launch", kernels_a_call=a_call["K7"],
                   **{key: pile500[key] for key in (

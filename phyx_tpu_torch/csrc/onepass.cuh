@@ -16,14 +16,16 @@
 // exits.  The scratch (Scan) is kept by the wrapper per device, stream and
 // shape and zeroed once.  It needs no memset per call and nothing of the
 // call from the host: the ticket counter's high word counts the finished
-// calls and its low word the call's tickets.  A call's number (its epoch,
-// 1 .. 2^30 - 1, in turn) is the count it reads in its tickets, plus one;
-// the block that takes the call's last ticket (the kernel knows its
-// number: every block takes one past the work) raises the count and
-// clears the tickets for the next call, whose blocks start after this
-// launch ends.  Every flag a call publishes carries its epoch, so a flag
-// of another call reads as not yet published.  So a launch captured in a
-// CUDA graph computes on every replay what it computes when run.
+// calls modulo 2^30 - 1 and its low word the call's tickets.  A call's
+// number (its epoch) is the count it reads in its tickets, plus one: the
+// epochs run 1 .. 2^30 - 1 and then again from 1, so an epoch comes back
+// only after 2^30 - 1 calls.  The block that takes the call's last ticket
+// (the kernel knows its number: every block takes one past the work)
+// raises the count and clears the tickets for the next call, whose blocks
+// start after this launch ends.  Every flag a call publishes carries its
+// epoch, so a flag of another call reads as not yet published.  So a
+// launch captured in a CUDA graph computes on every replay what it
+// computes when run.
 
 #pragma once
 
@@ -43,7 +45,8 @@ constexpr unsigned kMaxTries = 1u << 26;
 constexpr unsigned kEpochs = (1u << 30) - 1u;
 
 struct Scan {
-  unsigned long long* ticket;  // (1) finished calls << 32 | call's tickets
+  unsigned long long* ticket;  // (1) finished calls % kEpochs << 32 |
+                               //     the call's tickets
   unsigned* flag;              // (ntiles) epoch << 2 | state
   long long* agg;              // (ntiles) a tile's count
   long long* incl;             // (ntiles) the counts of tiles [0, i]
@@ -53,7 +56,7 @@ struct Scan {
 struct Tile {
   int index;       // in the emission order (a ticket, before it is mapped)
   unsigned epoch;  // the call's
-  unsigned calls;  // the calls finished before it
+  unsigned calls;  // the calls finished before it, modulo kEpochs
 };
 
 __device__ __forceinline__ void store_release(unsigned* p, unsigned v) {
@@ -110,15 +113,16 @@ __device__ __forceinline__ Tile take(const Scan& sc) {
   const unsigned long long t = s_ticket;
   const unsigned calls = static_cast<unsigned>(t >> 32);
   const unsigned long long i = t & 0xffffffffull;
-  return {i < 0x7fffffffull ? static_cast<int>(i) : 0x7fffffff,
-          calls % kEpochs + 1u, calls};
+  return {i < 0x7fffffffull ? static_cast<int>(i) : 0x7fffffff, calls + 1u,
+          calls};
 }
 
 // By the block holding the call's last ticket, when every ticket of the
 // call has been taken: the call counts as finished and the next one's
-// tickets start at 0.  One thread.
+// tickets start at 0; the count stays below kEpochs.  One thread.
 __device__ __forceinline__ void finish_call(const Scan& sc, Tile t) {
-  atomicExch(sc.ticket, static_cast<unsigned long long>(t.calls + 1u) << 32);
+  atomicExch(sc.ticket, static_cast<unsigned long long>(
+                            (t.calls + 1u) % kEpochs) << 32);
 }
 
 // The persistent grid of `kernel`: as many blocks as the card keeps

@@ -1,17 +1,12 @@
 """Kernels written by hand for Hopper, each beside its plain torch version
 and with a launch count (``<wrapper>.launches``)."""
 
+import torch
 
-def wrappers() -> tuple:
-    """Every kernel's wrapper, K1 to K7: the functions whose ``launches``
-    count their kernels' launches."""
-    from phyx_tpu_torch.kernels.contact_solver import solve_contacts_fused
-    from phyx_tpu_torch.kernels.contact_solver_streamed import \
-        solve_contacts_streamed
-    from phyx_tpu_torch.kernels.contact_solver_tiled import (
-        solve_contacts_tiled, solve_contacts_tiled2)
-    from phyx_tpu_torch.kernels.sweep import sweep_emit, sweep_emit_v2
-    from phyx_tpu_torch.kernels.sweep_tiled import sweep_emit_tiled
-    return (solve_contacts_streamed, solve_contacts_fused,
-            solve_contacts_tiled2, sweep_emit_tiled, solve_contacts_tiled,
-            sweep_emit_v2, sweep_emit)
+
+def count_launch(wrapper) -> None:
+    """Adds one to ``wrapper.launches`` for a kernel launched on the card.
+    A launch inside a CUDA graph capture only records the kernel, which
+    runs at each replay outside any wrapper: it is not counted."""
+    if not torch.cuda.is_current_stream_capturing():
+        wrapper.launches += 1

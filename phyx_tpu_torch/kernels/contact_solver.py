@@ -36,7 +36,7 @@ from typing import Optional
 
 import torch
 
-from phyx_tpu_torch.kernels import nvcc
+from phyx_tpu_torch.kernels import count_launch, nvcc
 from phyx_tpu_torch.kernels.contact_solver_streamed import (
     check_inputs, levels_walk, solve_contacts_streamed_plain, visit_levels)
 
@@ -130,7 +130,7 @@ def solve_contacts_fused(
     if device.type != "cuda":
         raise NotImplementedError(f"no solve kernel for {device.type}")
     out = _launch(*args[:9], c_cap, tols, solve=True)
-    solve_contacts_fused.launches += 1
+    count_launch(solve_contacts_fused)
     return out
 
 

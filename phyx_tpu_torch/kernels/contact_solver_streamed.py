@@ -57,7 +57,7 @@ from typing import Optional
 
 import torch
 
-from phyx_tpu_torch.kernels import nvcc
+from phyx_tpu_torch.kernels import count_launch, nvcc
 
 SOURCE = nvcc.CSRC / "contact_solver_streamed.cu"
 
@@ -170,7 +170,7 @@ def solve_contacts_streamed(
         raise NotImplementedError(f"no solve kernel for {device.type}")
 
     out = _launch(*args[:9], c_cap, tols, **placement(n))
-    solve_contacts_streamed.launches += 1
+    count_launch(solve_contacts_streamed)
     return out
 
 

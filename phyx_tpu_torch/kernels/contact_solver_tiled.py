@@ -63,7 +63,7 @@ from typing import Optional
 
 import torch
 
-from phyx_tpu_torch.kernels import nvcc
+from phyx_tpu_torch.kernels import count_launch, nvcc
 from phyx_tpu_torch.kernels.contact_solver_streamed import (
     _check, _scratch, levels_of, levels_walk, placement, plain_walk)
 
@@ -211,7 +211,7 @@ def solve_contacts_tiled2(
         return solve_contacts_tiled2_plain(**args, tols=tols)
     out = _launch(dict(args, tols=tols),
                   **placement(body_flat.numel() // 8))[:3]
-    solve_contacts_tiled2.launches += 1
+    count_launch(solve_contacts_tiled2)
     return out
 
 
@@ -244,7 +244,7 @@ def solve_contacts_tiled(
         return solve_contacts_tiled_plain(**args, tols=tols)
     out = _launch(dict(args, tols=tols),
                   **placement(body_flat.numel() // 8))[:3]
-    solve_contacts_tiled.launches += 1
+    count_launch(solve_contacts_tiled)
     return out
 
 

@@ -50,7 +50,7 @@ import functools
 
 import torch
 
-from phyx_tpu_torch.kernels import nvcc
+from phyx_tpu_torch.kernels import count_launch, nvcc
 from phyx_tpu_torch.kernels.contact_solver_streamed import _check
 from phyx_tpu_torch.types import EMPTY
 
@@ -107,7 +107,9 @@ def _scan_scratch(kind: str, device, ntiles: int, extra: tuple) -> tuple:
     in turn; a capture runs on its own stream (``step._capture``), whose
     scratch the uncaptured warm-up frame makes before the capture, so the
     captured launches of every graph use that one, outside the graphs'
-    pools."""
+    pools.  A graph replays on its caller's stream, so two graphs of one
+    shape replayed at once on two streams would share one scratch: graph
+    replays on a device must run one at a time."""
     stream = torch.cuda.current_stream(device).cuda_stream
     key = (kind, device.index, stream, ntiles, extra)
     if key not in _SCRATCH:
@@ -202,7 +204,7 @@ def sweep_emit(aabb_flat: torch.Tensor,   # (4 N,) f32 by body id
               else torch.empty((n,), **i32))
     warp_pass(aabb_flat, order, dyn, nact, pi, pj, num, ovf, max_pairs,
               counts)
-    sweep_emit.launches += 1
+    count_launch(sweep_emit)
     return pi, pj, num, ovf
 
 
@@ -228,7 +230,7 @@ def sweep_emit_v2(aabb_flat: torch.Tensor,   # (4 N,) f32 sorted
     pi, pj = (torch.empty((max_pairs,), **i32) for _ in range(2))
     counters = torch.empty((2,), **i32)
     chunked_pass(aabb_flat, order, dyn, nact, pi, pj, counters, max_pairs)
-    sweep_emit_v2.launches += 1
+    count_launch(sweep_emit_v2)
     return pi, pj, counters[0], counters[1]
 
 

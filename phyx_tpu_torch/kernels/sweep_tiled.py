@@ -45,7 +45,7 @@ from typing import Optional
 
 import torch
 
-from phyx_tpu_torch.kernels import nvcc
+from phyx_tpu_torch.kernels import count_launch, nvcc
 from phyx_tpu_torch.kernels.contact_solver_streamed import _check
 from phyx_tpu_torch.kernels.sweep import (_launch, _require_cuda,
                                           _scan_scratch)
@@ -119,7 +119,7 @@ def sweep_emit_tiled(
     pi, pj = (torch.empty((max_pairs,), **i32) for _ in range(2))
     counters = torch.empty((3,), **i32)
     tiled_pass(*args, pi, pj, counters)
-    sweep_emit_tiled.launches += 1
+    count_launch(sweep_emit_tiled)
     return pi, pj, counters[0], counters[1], counters[2]
 
 

@@ -271,8 +271,11 @@ def rollout(state: State, cfg: SimConfig, num_steps: int) -> State:
     replays chain on the device with no host work between frames.  Returns
     a copy: a state the caller keeps is never written by a later replay.
     A capture or replay that fails raises; nothing falls back to the
-    loop.  The kernels' launch counts (``<wrapper>.launches``) read as if
-    every frame had been stepped."""
+    loop.  The kernels' launch counts (``<wrapper>.launches``) count the
+    warm-up frame; a replay launches from the graph, past every wrapper.
+    The graphs of a device share K4's and K6's scan scratch
+    (``kernels.sweep._scan_scratch``): replay them one at a time, on one
+    stream or in turn."""
     if num_steps <= 0 or state.bodies.pos.device.type != "cuda":
         for _ in range(num_steps):
             state = step(state, cfg)
@@ -289,22 +292,18 @@ def rollout(state: State, cfg: SimConfig, num_steps: int) -> State:
         _copy_into(graph.static, state)
     for _ in range(num_steps - done):
         graph.graph.replay()
-    for wrapper, count in graph.launches:
-        wrapper.launches += count * (num_steps - done)
     return _map(graph.static, torch.clone)
 
 
 @dataclasses.dataclass
 class _Graph:
     """A captured frame: ``graph`` reads ``static`` and writes the frame's
-    output back into it; ``launches`` holds each kernel wrapper's launches
-    in the frame; ``pool_bytes`` the device memory its private pool took
+    output back into it; ``pool_bytes`` the device memory its private pool took
     at capture (``torch.cuda.memory_reserved`` before and after)."""
 
     graph: "torch.cuda.CUDAGraph"
     static: State
     signature: tuple
-    launches: tuple
     pool_bytes: int
 
 
@@ -351,10 +350,7 @@ def _capture(state: State, cfg: SimConfig, signature: tuple) -> _Graph:
     build must not run inside one, and makes K4's and K6's scan scratch
     for that stream, which the captured launches then use), its output
     copied into buffers of its own; then one ``step`` of those buffers
-    captured with the copy of its output back into them.  The launch
-    counts keep the warm-up's launches and not the capture's, which
-    launches nothing."""
-    from phyx_tpu_torch.kernels import wrappers
+    captured with the copy of its output back into them."""
     dev = state.bodies.pos.device
     cur = torch.cuda.current_stream(dev)
     side = _STREAMS.get(dev)
@@ -363,7 +359,6 @@ def _capture(state: State, cfg: SimConfig, signature: tuple) -> _Graph:
     side.wait_stream(cur)
     with torch.cuda.stream(side):
         static = _map(step(state, cfg), torch.clone)
-        before = [w.launches for w in wrappers()]
         reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()
         graph.capture_begin()
@@ -376,16 +371,10 @@ def _capture(state: State, cfg: SimConfig, signature: tuple) -> _Graph:
             except RuntimeError:
                 pass
             raise
-        finally:
-            counted = [w.launches - b for w, b in zip(wrappers(), before)]
-            for w, b in zip(wrappers(), before):
-                w.launches = b
         graph.capture_end()
         pool = torch.cuda.memory_reserved(dev) - reserved
     cur.wait_stream(side)
     return _Graph(graph=graph, static=static, signature=signature,
-                  launches=tuple((w, c) for w, c in zip(wrappers(), counted)
-                                 if c),
                   pool_bytes=pool)
 
 
@@ -401,10 +390,9 @@ def release_graphs(cfg: SimConfig = None, device=None) -> None:
 
 
 def graph_info() -> list:
-    """Each captured frame: its configuration, device, private pool bytes
-    and kernel launches a frame (by wrapper name)."""
-    return [dict(cfg=k[0], device=str(k[1]), pool_bytes=g.pool_bytes,
-                 launches={w.__name__: c for w, c in g.launches})
+    """Each captured frame: its configuration, device and private pool
+    bytes."""
+    return [dict(cfg=k[0], device=str(k[1]), pool_bytes=g.pool_bytes)
             for k, g in _GRAPHS.items()]
 
 
