@@ -207,12 +207,28 @@ Phases; any failure raises and the script exits non-zero:
              counts hold each kernel's name to its wrapper; the kernels
              line's launches are those of the replays; busy ms and idle
              share of a replayed frame from the same trace.
+13. aux    — the auxiliaries, after the colored phase and before the
+             profiler's session: row B' (the 1k pile, K2) settled 60
+             frames, checkpointed, loaded onto the card, the saved and the
+             loaded state each replaying 30 frames equal to the bit, the
+             file loaded on the CPU equal to the card state's copy;
+             ``metrics.snapshot`` of that state on the card against its
+             CPU copy; ``debug.checked_rollout`` over 60 frames (a graph
+             of its own) equal to ``rollout``'s to the bit, a NaN velocity
+             raising from ``checked_step`` and the reference's overflow
+             scene from ``checked_rollout``; ``profiling.profile_step``
+             (20 chained frames) at the settled 10k pile (K1) and chain
+             (K2, joint stages), the frame with its stage marks equal to
+             ``step``'s to the bit, a 1 us sleep flagged host-paced by
+             ``stage_times`` and refused by ``profile_step``; the demos ``run_scene`` (a 500-box pile: metrics,
+             checkpoint, resume) and ``run_envs`` (16 envs x 64 boxes) in
+             this process.  One ``{"aux": ...}`` line.
 
-Prints a JSON line per main-path phase (physics, rates, stage times), a
-JSON line of the colored frames' breakdown, one of every timed scene both
-ways (``frames``), one of the kernels, the card's ``nvidia-smi`` name and
-power limit, and last ``{"ok": true, "device": {...}}``.  Imports nothing
-of JAX.
+Prints a JSON line per main-path phase (physics, rates, stage times), the
+auxiliaries' line, a JSON line of the colored frames' breakdown, one of
+every timed scene both ways (``frames``), one of the kernels, the card's
+``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
+{...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -1286,7 +1302,8 @@ def _replay_equals_steps(st, cfg, what: str) -> dict:
             if not torch.equal(_bits(x), _bits(y)):
                 raise AssertionError(f"{what}: {rec.name}.{f.name} after two "
                                      "replays differs from two steps")
-    info = next(g for g in graph_info() if g["cfg"] == cfg)
+    info = next(g for g in graph_info()
+                if g["cfg"] == cfg and g["frame"] == "step")
     print(f"# graph replay: {what}: two replays == two uncaptured steps, "
           f"every State tensor to the bit; the graph's pool "
           f"{info['pool_bytes'] / 2**20:.1f} MiB", flush=True)
@@ -1357,38 +1374,23 @@ def _bound_slabs(args, walked: int) -> dict:
                 bytes=nbytes, ops=ops, visits=(1 + v + p) * walked)
 
 
-def _stage_ms(st, cfg, frames: int, sleep_cycles: int = 200_000_000):
-    """Device ms of the step's three stages, averaged over ``frames``
-    frames, on CUDA events.  Each frame is queued behind a sleep kernel of
-    ``sleep_cycles`` (~100 ms by default), so the host has queued the
-    stages before the device reaches them and the events time device work
-    alone (``device_only`` says whether the host's enqueue did finish
-    inside the sleep).  Returns (state after the frames, dict of ms)."""
-    import torch
-    from phyx_tpu_torch.step import contact_stage, finish_stage, solve_stage
-    names = ("contact_stage", "solve_stage", "finish_stage")
-    out = dict.fromkeys(names + ("sleep", "host_enqueue"), 0.0)
-    for _ in range(frames):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-        _sync()
-        ev[0].record()
-        torch.cuda._sleep(sleep_cycles)
-        t0 = time.perf_counter()
-        ev[1].record()
-        bodies, pairs, contacts, jrows, jwarm = contact_stage(st, cfg)
-        ev[2].record()
-        bodies, acc_n, acc_t, res, joints, pairs = solve_stage(
-            bodies, contacts, pairs, st.joints, jrows, jwarm, cfg)
-        ev[3].record()
-        st = finish_stage(st, cfg, bodies, joints, pairs, contacts, acc_n,
-                          acc_t, res)
-        ev[4].record()
-        out["host_enqueue"] += (time.perf_counter() - t0) * 1e3 / frames
-        _sync()
-        out["sleep"] += ev[0].elapsed_time(ev[1]) / frames
-        for k, name in enumerate(names):
-            out[name] += ev[k + 1].elapsed_time(ev[k + 2]) / frames
-    out["device_only"] = out["host_enqueue"] < out["sleep"]
+def _stage_ms(st, cfg, frames: int, sleep_ms: float = 100.0):
+    """Device ms of the step's three parts (``contact_stage``,
+    ``solve_stage``, ``finish_stage``), averaged over ``frames`` chained
+    frames, from the library's stage timer (``profiling.stage_times``):
+    each frame is queued behind a sleep kernel of ``sleep_ms``, so the
+    host has queued the stages before the device reaches them and the
+    events time device work alone (``device_only`` says whether the
+    host's enqueue did finish inside the sleep).  Returns (state after
+    the frames, dict of ms)."""
+    from phyx_tpu_torch.profiling import stage_times
+    st, t = stage_times(st, cfg, frames, sleep_ms)
+    extra = ("sleep", "host_enqueue", "device_only")
+    stages = [k for k in t if k not in extra]
+    out = dict(contact_stage=sum(t[k] for k in
+                                 stages[:stages.index("solve")]),
+               solve_stage=t["solve"], finish_stage=t["build_cache"])
+    out.update((k, t[k]) for k in extra)
     return st, out
 
 
@@ -1607,6 +1609,8 @@ def _timed(st, cfg, kernels: tuple, both_ways: bool = False,
 
 # each timed scene's record by label (``_frames_summary``)
 _TIMED: dict = {}
+# each timed scene's settled (state, cfg) by label (``phase_aux``)
+_SETTLED: dict = {}
 # each traced scene by label: (the kernels its frame launches once each,
 # the entries of ``_FRAMES`` that make up one uncaptured frame, the entry
 # of its replays)
@@ -1636,6 +1640,7 @@ def _register(label: str, out: dict, st, cfg, kernels: tuple,
     traces its frame (``_trace``)."""
     _trace(label, st, cfg, kernels, stages)
     _TIMED[label] = out
+    _SETTLED[label] = (st, cfg)
 
 
 def _marks(hand: dict) -> dict:
@@ -2259,36 +2264,6 @@ def phase_pile20k(card: str) -> dict:
                 **_bound_slabs(k5_short, k5_walked)))
 
 
-def _envs_scene(num_envs: int, boxes_per_env: int):
-    """bench.py's build_envs (bench.py:96-157) with its defaults (banded
-    keys, no segmented sort, ``broadphase="sap"``, window 96 / 8 hits) and
-    the pallas backend: per-env piles (seed = env, ground half 30) on a
-    band grid of 8 y-bands 400 apart and x cells 80 apart.  Returns (cfg,
-    state on the card)."""
-    from phyx_tpu_torch import SimConfig, scenes
-    from phyx_tpu_torch.parallel.envs import concat_envs
-    total = num_envs * (boxes_per_env + 1) + 8
-    cap = max(1024, -(-total // 1024) * 1024)
-    y_bands = 8 if num_envs >= 64 else 1
-    x_count = -(-num_envs // y_bands)
-    span = 1.0
-    while span < x_count * 80.0 + 256.0:
-        span *= 2.0
-    banded = y_bands > 1
-    cfg = SimConfig(
-        max_bodies=cap,
-        max_pairs=max(1024, (int(num_envs * boxes_per_env * 3.2) + 511)
-                      // 512 * 512),
-        broadphase="sap", sap_window=96, sap_hits=8, solver_backend="pallas",
-        sweep_band_h=400.0 if banded else 0.0, sweep_band_y0=-200.0,
-        sweep_band_span=span if banded else 0.0)
-    mega, _, _ = concat_envs(
-        [scenes.pile(cfg, boxes_per_env, seed=s, ground_half=30.0)
-         for s in range(num_envs)],
-        cfg, band_width=80.0, y_bands=y_bands, band_height=400.0)
-    return cfg, mega.build()
-
-
 def _bound_sweep(args, num: int) -> dict:
     """The least time for K4 on ``args``: the rows its sweeps touch, those
     below ``nact`` (every padded row in the segmented layout, where nact =
@@ -2336,9 +2311,10 @@ def phase_envs1024(card: str) -> dict:
     checked, and timed (``_tiled_full``; the serial plain version would
     take ~10 minutes at this frame)."""
     from phyx_tpu_torch.broadphase import _sap_tiled_sort_stage, compute_aabbs
+    from phyx_tpu_torch.demos.run_envs import build_envs
     from phyx_tpu_torch.step import solve_inputs
     st, cfg, out = _drive("envs", ENVS * 256, 240, ("K3", "K4"), card,
-                          built=_envs_scene(ENVS, 256))
+                          built=build_envs(ENVS, 256))
     pen_ratio = _envs_bar(out, ENVS)
     st, stages = _stage_ms(st, cfg, frames=3)
     _checked_rate(out, stages)
@@ -2409,10 +2385,11 @@ def phase_envs64(card: str, envs1024: dict) -> dict:
     plain version at the settled frame and timed, and K1 against its
     plain version there, and timed."""
     from phyx_tpu_torch.broadphase import sap_kernel_inputs
+    from phyx_tpu_torch.demos.run_envs import build_envs
     from phyx_tpu_torch.step import integrate_velocities, solve_inputs
     n_envs = 64
     st, cfg, out = _drive("envs", n_envs * 256, 240, ("K1", "K6"), card,
-                          built=_envs_scene(n_envs, 256), both_ways=True)
+                          built=build_envs(n_envs, 256), both_ways=True)
     pen_ratio = _envs_bar(out, n_envs)
     st, stages = _stage_ms(st, cfg, frames=3)
     _checked_rate(out, stages, null_below=True)
@@ -2961,7 +2938,7 @@ def _colored_scene(scene: str, boxes: int, settle: int, card: str,
     # "enqueue" behind a 0.5 s sleep at the 10k frame).  The events time
     # the device stream's wall clock, idle gaps included; the stages' busy
     # time comes from torch.profiler (``_kernels_a_call``)
-    st, stages = _stage_ms(st, cfg, frames=3, sleep_cycles=0)
+    st, stages = _stage_ms(st, cfg, frames=3, sleep_ms=0.0)
     del stages["sleep"], stages["device_only"]
     out["graph_replay"] = _replay_equals_steps(
         st, cfg, f"the settled colored {scene}")
@@ -3095,6 +3072,264 @@ def phase_colored(card: str) -> dict:
     return out
 
 
+def _states_equal(a, b, what: str) -> None:
+    """Every State tensor of ``a`` equal to ``b``'s to the bit (same
+    device, or ``b`` on the CPU against ``a``'s CPU copy)."""
+    import torch
+    from phyx_tpu_torch.step import _leaves
+    for x, y in zip(_leaves(a), _leaves(b)):
+        x, y = x.cpu(), y.cpu()
+        if (x.dtype != y.dtype or x.shape != y.shape
+                or not torch.equal(_bits(x), _bits(y))):
+            raise AssertionError(f"{what}: states differ")
+
+
+def _settled(label: str, scene: str, boxes: int, settle: int):
+    """The settled state of a timed scene (``_SETTLED``), or, where this
+    run has none (the phase called alone), the scene built and settled
+    through ``rollout`` as its phase settles it."""
+    from phyx_tpu_torch import scenes
+    from phyx_tpu_torch.step import rollout
+    if label in _SETTLED:
+        return _SETTLED[label]
+    cfg = _bench_cfg(scene, boxes)
+    kw = {"seed": 0} if scene == "pile" else {}
+    return rollout(getattr(scenes, scene)(cfg, boxes, **kw).build(), cfg,
+                   settle), cfg
+
+
+def _aux_checkpoint(tmp: str) -> tuple:
+    """Row B' (the 1k pile, K2) settled 60 frames, saved, loaded onto the
+    card: the loaded state and the saved one each replay 30 frames, equal
+    to the bit; the file loaded with a CPU ``like`` equals the card
+    state's CPU copy.  Returns (record, the settled state, cfg)."""
+    import os
+
+    from phyx_tpu_torch import checkpoint, scenes
+    from phyx_tpu_torch.step import _map, rollout
+    cfg = _bench_cfg("pile", 1000)
+    sb = scenes.pile(cfg, 1000, seed=0)
+    st = rollout(sb.build(), cfg, 60)
+    path = os.path.join(tmp, "pile1k.npz")
+    t0 = time.perf_counter()
+    checkpoint.save(path, st)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = checkpoint.load(path, sb.build())
+    _sync()
+    load_s = time.perf_counter() - t0
+    if loaded.bodies.pos.device != st.bodies.pos.device:
+        raise AssertionError("checkpoint: load left the card")
+    _states_equal(loaded, st, "checkpoint: the loaded state")
+    _states_equal(rollout(loaded, cfg, 30), rollout(st, cfg, 30),
+                  "checkpoint: 30 replayed frames after the load")
+    host = checkpoint.load(path, sb.build("cpu"))
+    if host.bodies.pos.device.type != "cpu":
+        raise AssertionError("checkpoint: a CPU like loaded off the CPU")
+    _states_equal(host, _map(st, lambda t: t.cpu()),
+                  "checkpoint: the file on the CPU")
+    print(f"# aux checkpoint: the 1k pile at frame 60 saved "
+          f"({os.path.getsize(path)} B, {save_s:.3f} s) and loaded onto "
+          f"the card ({load_s:.3f} s); 30 replayed frames of each equal to "
+          "the bit; the CPU load equals the card state's copy", flush=True)
+    return dict(bytes=os.path.getsize(path), save_s=save_s,
+                load_s=load_s, ok=True), st, cfg
+
+
+def _aux_metrics(st) -> dict:
+    """``snapshot`` of a card state against ``snapshot`` of its CPU copy:
+    integers exact, floats within 1e-5 relative."""
+    from phyx_tpu_torch.metrics import snapshot
+    from phyx_tpu_torch.step import _map
+    card = snapshot(st)
+    host = snapshot(_map(st, lambda t: t.cpu()))
+    if list(card) != list(host):
+        raise AssertionError(f"metrics: keys {list(card)} != {list(host)}")
+    worst = 0.0
+    for k, v in host.items():
+        if isinstance(v, int):
+            if card[k] != v or type(card[k]) is not int:
+                raise AssertionError(f"metrics: {k} {card[k]} != {v}")
+        else:
+            rel = abs(card[k] - v) / max(abs(v), 1e-30)
+            worst = max(worst, rel)
+            if not rel <= 1e-5:
+                raise AssertionError(f"metrics: {k} {card[k]} vs {v}")
+    if host["num_contacts"] <= 0:
+        raise AssertionError("metrics: no contacts in the settled 1k pile")
+    return dict(snapshot=card, max_rel_err_floats=worst, ok=True)
+
+
+def _aux_guards(st, cfg) -> dict:
+    """``checked_rollout`` over 60 frames of the settled 1k pile: passes,
+    replays a graph of its own (K2 launched by its wrapper once, in the
+    warm-up frame) and equals ``rollout``'s 60 frames to the bit; one NaN
+    velocity raises "non-finite" from ``checked_step``; the reference's
+    overflow scene (tests/test_property.py:164-175) raises "overflow" from
+    ``checked_rollout``."""
+    from phyx_tpu_torch import SimConfig, scenes
+    from phyx_tpu_torch.debug import GuardError, checked_rollout, \
+        checked_step
+    from phyx_tpu_torch.step import _GRAPHS, release_graphs, rollout
+    _reset_counts()
+    t0 = time.perf_counter()
+    checked = checked_rollout(st, cfg, 60)
+    checked_s = time.perf_counter() - t0
+    launched = _counts()
+    if launched != {k: int(k == "K2") for k in launched}:
+        raise AssertionError(f"guards: checked_rollout launched {launched}")
+    if (cfg, st.bodies.pos.device, "checked") not in _GRAPHS:
+        raise AssertionError("guards: no captured guarded frame")
+    _states_equal(checked, rollout(st, cfg, 60),
+                  "guards: checked_rollout against rollout, 60 frames")
+    bad = st.replace(bodies=st.bodies.replace(vel=st.bodies.vel.clone()))
+    bad.bodies.vel[1, 0] = float("nan")
+    messages = {}
+    try:
+        checked_step(bad, cfg)
+    except GuardError as e:
+        messages["nan"] = str(e)
+    if "non-finite" not in messages.get("nan", ""):
+        raise AssertionError("guards: a NaN velocity passed checked_step")
+    ovf = SimConfig(max_bodies=32, max_pairs=4, broadphase="n2",
+                    solver_backend="pallas")
+    try:
+        checked_rollout(scenes.pile(ovf, 12, seed=0).build(), ovf, 30)
+    except GuardError as e:
+        messages["overflow"] = str(e)
+    release_graphs(ovf)
+    if "overflow" not in messages.get("overflow", ""):
+        raise AssertionError("guards: the overflow scene passed "
+                             "checked_rollout")
+    print(f"# aux guards: checked_rollout of 60 frames in {checked_s:.3f} s"
+          f" == rollout to the bit; raised: {messages}", flush=True)
+    return dict(checked_rollout_s=checked_s, raised=messages, ok=True)
+
+
+def _aux_profile(label: str, st, cfg, kernel: str) -> dict:
+    """``profile_step`` at a settled frame with reps=20: the reference's
+    stage order, every ms positive, the host's enqueue inside the sleep;
+    the frame run with the stage marks equal to ``step``'s to the bit on
+    the card, launching ``kernel`` once, its marks in the stage order; a
+    sleep too short on purpose (1 us) flagged as host-paced by
+    ``stage_times`` and refused by ``profile_step``."""
+    from phyx_tpu_torch.profiling import (STAGES, STAGES_JOINTS,
+                                          profile_step, stage_times)
+    from phyx_tpu_torch.step import step
+    stages = STAGES_JOINTS if st.joints.capacity else STAGES
+    marks = []
+    _reset_counts()
+    staged = step(st, cfg, marks.append)
+    launched = _counts()
+    if launched != {k: int(k == kernel) for k in launched}:
+        raise AssertionError(f"profile {label}: the staged frame launched "
+                             f"{launched}")
+    if marks != stages:
+        raise AssertionError(f"profile {label}: marks {marks}")
+    _states_equal(staged, step(st, cfg),
+                  f"profile {label}: the staged frame against step")
+    rows = profile_step(st, cfg, reps=20)
+    if [r["stage"] for r in rows] != stages + ["REAL full step"]:
+        raise AssertionError(f"profile {label}: rows {rows}")
+    if not all(r["ms"] > 0 for r in rows):
+        raise AssertionError(f"profile {label}: a stage not positive: "
+                             f"{rows}")
+    _, short = stage_times(st, cfg, 2, sleep_ms=1e-3)
+    if short["device_only"]:
+        raise AssertionError(f"profile {label}: a 1 us sleep read as "
+                             f"device-only: {short}")
+    try:
+        profile_step(st, cfg, reps=2, sleep_ms=1e-3)
+    except RuntimeError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"profile {label}: profile_step took a 1 us "
+                             "sleep")
+    total = rows[-2]["cum_ms"]
+    print(f"# aux profile, {label} (reps 20): " + ", ".join(
+        f"{r['stage']} {r['ms']:.4f} ms" for r in rows[:-1])
+        + f"; uncaptured sum of the stages {total:.4f} ms; REAL full step "
+        f"(replayed) {rows[-1]['ms']:.4f} ms; behind a 1 us sleep: host "
+        f"{short['host_enqueue']:.3f} ms, refused: {refused}", flush=True)
+    return dict(rows=rows, stages_sum_ms=total,
+                replayed_ms=rows[-1]["ms"],
+                short_sleep=dict(host_enqueue_ms=short["host_enqueue"],
+                                 sleep_ms=short["sleep"], refused=refused),
+                ok=True)
+
+
+def _aux_demos(tmp: str) -> dict:
+    """``run_scene.main`` on a 500-box pile (120 steps with ``--metrics``
+    and ``--checkpoint``, then 60 more with ``--resume``) and
+    ``run_envs.main`` (16 envs x 64 boxes, 100 steps), in this process:
+    each returns 0 and the JSONL parses."""
+    import contextlib
+    import io
+    import os
+
+    from phyx_tpu_torch.demos import run_envs, run_scene
+    m1, m2 = os.path.join(tmp, "m1.jsonl"), os.path.join(tmp, "m2.jsonl")
+    ck = os.path.join(tmp, "ck.npz")
+    base = ["pile", "--boxes", "500"]
+    runs = dict(
+        run_scene=(run_scene.main, base + [
+            "--steps", "120", "--metrics", m1, "--checkpoint", ck]),
+        run_scene_resumed=(run_scene.main, base + [
+            "--steps", "60", "--metrics", m2, "--resume", ck]),
+        run_envs=(run_envs.main, ["--envs", "16", "--boxes", "64",
+                                  "--steps", "100"]))
+    out = {}
+    for name, (fn, argv) in runs.items():
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = fn(argv)
+        _sync()
+        lines = buf.getvalue().splitlines()
+        out[name] = dict(rc=rc, s=time.perf_counter() - t0,
+                         last_line=lines[-1] if lines else "")
+        if rc != 0:
+            raise AssertionError(f"demo {name} exited {rc}: {lines}")
+    for name, path, steps in (("run_scene", m1, [60, 120]),
+                              ("run_scene_resumed", m2, [60])):
+        recs = [json.loads(line) for line in open(path)]
+        if ([r["event"] for r in recs] != ["run_start"] + ["step"] * len(
+                steps) or [r["step"] for r in recs[1:]] != steps):
+            raise AssertionError(f"demo {name}: records {recs}")
+        last = recs[-1]
+        if last["num_contacts"] <= 0:
+            raise AssertionError(f"demo {name}: {last}")
+        out[name]["last_record"] = last
+    print("# aux demos: " + "; ".join(
+        f"{k} rc {v['rc']} in {v['s']:.2f} s: {v['last_line']}"
+        for k, v in out.items()), flush=True)
+    return out
+
+
+def phase_aux() -> dict:
+    """The auxiliaries on the card: checkpoint and resume, metrics, the
+    debug guards, the stage profiler (the settled 10k pile, K1, and the
+    chain, K2 with joint stages) and the two demos.  Any failed check
+    raises."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, st, cfg = _aux_checkpoint(tmp)
+        out = dict(checkpoint=ckpt, metrics=_aux_metrics(st),
+                   guards=_aux_guards(st, cfg))
+        del st
+        out["profile"] = {
+            label: _aux_profile(label, *_settled(label, scene, boxes,
+                                                 settle), kernel)
+            for label, scene, boxes, settle, kernel in (
+                ("pile 10000", "pile", 10_000, 200, "K1"),
+                ("chain 1000", "chain", 1000, 300, "K2"))}
+        out["demos"] = _aux_demos(tmp)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"# aux phase: {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def _row(name, source, replaces, launches, k, timed, **extra) -> dict:
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "ms_full_solve", "bound_ms_full_solve", "ns_per_visit")
@@ -3185,6 +3420,9 @@ def main() -> int:
     lap("avalanche 100k")
     colored = phase_colored(card)
     lap("colored")
+    aux = phase_aux()
+    lap("aux")
+    print(json.dumps({"aux": aux}), flush=True)
     release_graphs()
     a_call = _kernels_a_call()
     traced = _replays_traced(a_call)

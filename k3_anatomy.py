@@ -90,6 +90,7 @@ def settled_frames() -> dict:
     """{frame: (kernel, its inputs)}, each frame settled without host
     waits."""
     from phyx_tpu_torch import scenes
+    from phyx_tpu_torch.demos.run_envs import build_envs
     from phyx_tpu_torch.step import rollout, solve_inputs
     cfg = chip_smoke._bench_cfg("pile", 20_000)
     st = rollout(scenes.pile(cfg, 20_000, seed=0).build(), cfg, 300)
@@ -97,7 +98,7 @@ def settled_frames() -> dict:
               "pile20k_routed": ("K5", solve_inputs(
                   st, cfg.replace(tiled_routing=False)))}
     for envs in (128, 1024):
-        cfg, st = chip_smoke._envs_scene(envs, 256)
+        cfg, st = build_envs(envs, 256)
         st = rollout(st, cfg, 240)
         frames[f"envs{envs}"] = ("K3", solve_inputs(st, cfg))
     chip_smoke._sync()

@@ -16,9 +16,15 @@ as one mega-scene (``parallel.envs.concat_envs``), the grid, tiled-sweep
 and all-pairs broadphases with banded and segmented sweep keys and the
 slab-major finalize, jointed-pair exclusion, narrowphase, the contact
 cache, solver and joint prepare, the coloring, the seven kernels,
-``step``, ``rollout`` and ``World`` — for every ``solver_backend``
-(``"xla"``, the default, ``"pallas"`` and ``"pallas_tiled"``).  Entry
-points put state on the card unless the caller names another device.
+``step`` and ``World`` — for every ``solver_backend`` (``"xla"``, the
+default, ``"pallas"`` and ``"pallas_tiled"``); ``rollout`` as a CUDA graph
+replay on the card (M7); the autotuner ``tune`` and the sweep-budget
+policies (M13); and the auxiliaries (M15): ``checkpoint`` (npz files
+interchangeable with the JAX package's), ``metrics`` (``snapshot``,
+``MetricsLogger``), ``debug`` (``checked_step``, ``checked_rollout``),
+``profiling`` (``profile_step``), the f64 ``oracle`` with
+``SceneBuilder.to_oracle``, and the headless ``demos``.  Entry points put
+state on the card unless the caller names another device.
 
     from phyx_tpu_torch import SimConfig, scenes
     from phyx_tpu_torch.step import step, rollout

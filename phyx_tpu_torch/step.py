@@ -208,30 +208,44 @@ def solve_stage(bodies: Bodies, contacts: Contacts, pairs: Pairs,
     return bodies, back[:, 0], back[:, 1], residual, joints, pairs
 
 
-def contact_stage(state: State, cfg: SimConfig):
+def _no_mark(stage: str) -> None:
+    pass
+
+
+def contact_stage(state: State, cfg: SimConfig, mark=_no_mark):
     """Everything before the solve: integrate velocities, broadphase,
     jointed-pair exclusion, narrowphase, warm start, prepare and the
     joints' rows.  Returns (bodies, pairs, prepared contacts, joint rows,
-    joint warm impulses)."""
+    joint warm impulses).  ``mark(stage)`` is called as each stage of
+    ``profiling.STAGES`` ends (``profiling.STAGES_JOINTS`` on a scene with
+    joint slots)."""
     bodies = integrate_velocities(state.bodies, cfg)
+    mark("integrate")
     # jointed scenes: no slab-major routing (the jointed-pair exclusion
     # re-sorts the buffer; the jointed tiled solve is K5)
     pairs = broadphase(bodies, cfg, tiled_routing=False
                        if state.joints.capacity else None)
     if state.joints.capacity:
         pairs = exclude_joint_pairs(pairs, state.joints)
+    mark("broadphase")
     contacts, pair_props = narrowphase_with_props(bodies, pairs, cfg)
+    mark("narrowphase")
     contacts = warm_start_from_cache(contacts, pairs, state.cache)
+    mark("cache_join")
     contacts = solver.prepare(contacts, cfg, pair_props)
+    mark("prepare")
     joint_rows, joint_warm = prepare_joint_stage(bodies, state.joints, cfg)
+    if state.joints.capacity:
+        mark("joint_prepare")
     return bodies, pairs, contacts, joint_rows, joint_warm
 
 
 def finish_stage(state: State, cfg: SimConfig, bodies: Bodies, joints,
                  pairs, contacts: Contacts, accum_n: torch.Tensor,
-                 accum_t: torch.Tensor, residual: torch.Tensor) -> State:
+                 accum_t: torch.Tensor, residual: torch.Tensor,
+                 mark=_no_mark) -> State:
     """Everything after the solve: integrate positions, rebuild the cache,
-    emit stats."""
+    emit stats; then ``mark("build_cache")``."""
     bodies = integrate_positions(bodies, cfg)
     cache = build_cache(contacts, pairs, accum_n, accum_t)
     stats = SolverStats(
@@ -248,17 +262,24 @@ def finish_stage(state: State, cfg: SimConfig, bodies: Bodies, joints,
         ovf_band=pairs.ovf_band,
         ovf_slab=pairs.ovf_slab,
     )
-    return State(bodies=bodies, joints=joints, cache=cache, stats=stats)
+    out = State(bodies=bodies, joints=joints, cache=cache, stats=stats)
+    mark("build_cache")
+    return out
 
 
-def step(state: State, cfg: SimConfig) -> State:
-    """One simulation frame: State -> State, no host round-trip."""
+def step(state: State, cfg: SimConfig, mark=_no_mark) -> State:
+    """One simulation frame: State -> State, no host round-trip.
+    ``mark(stage)`` is called as each stage ends, in the order of
+    ``profiling.STAGES`` (``STAGES_JOINTS`` on a scene with joint slots;
+    their solve is the contacts and joints solved together): the stage
+    profiler's hook, which does nothing by default."""
     bodies, pairs, contacts, joint_rows, joint_warm = contact_stage(
-        state, cfg)
+        state, cfg, mark)
     bodies, accum_n, accum_t, residual, joints, pairs = solve_stage(
         bodies, contacts, pairs, state.joints, joint_rows, joint_warm, cfg)
+    mark("solve")
     return finish_stage(state, cfg, bodies, joints, pairs, contacts,
-                        accum_n, accum_t, residual)
+                        accum_n, accum_t, residual, mark)
 
 
 def rollout(state: State, cfg: SimConfig, num_steps: int) -> State:
@@ -280,16 +301,9 @@ def rollout(state: State, cfg: SimConfig, num_steps: int) -> State:
         for _ in range(num_steps):
             state = step(state, cfg)
         return state
-    dev = state.bodies.pos.device
-    sig = _signature(state)
-    graph = _GRAPHS.get((cfg, dev))
-    done = 0
-    if graph is None or graph.signature != sig:
-        release_graphs(cfg, dev)
-        graph = _GRAPHS[(cfg, dev)] = _capture(state, cfg, sig)
-        done = 1    # the warm-up frame, whose output the buffers hold
-    else:
-        _copy_into(graph.static, state)
+    graph, done = graph_for(
+        state, (cfg, state.bodies.pos.device),
+        lambda: (lambda s: step(s, cfg), None))
     for _ in range(num_steps - done):
         graph.graph.replay()
     return _map(graph.static, torch.clone)
@@ -305,9 +319,13 @@ class _Graph:
     static: State
     signature: tuple
     pool_bytes: int
+    # what the frame keeps on the device beside the state (None for
+    # ``step``; the guards' error record for ``debug.checked_rollout``)
+    aux: object = None
 
 
-# one graph a configuration and device: (cfg, device) -> _Graph
+# captured frames: (cfg, device) -> _Graph for ``rollout``'s step, and
+# (cfg, device, name) for another frame of that configuration
 _GRAPHS: dict = {}
 # the stream each device captures on (a capture needs one of its own)
 _STREAMS: dict = {}
@@ -344,13 +362,34 @@ def _copy_into(static: State, state: State) -> None:
             d.copy_(s)
 
 
-def _capture(state: State, cfg: SimConfig, signature: tuple) -> _Graph:
-    """One uncaptured frame from ``state`` on the device's capture stream
-    (the warm-up: it builds the frame's kernels before capture, since a
-    build must not run inside one, and makes K4's and K6's scan scratch
-    for that stream, which the captured launches then use), its output
-    copied into buffers of its own; then one ``step`` of those buffers
-    captured with the copy of its output back into them."""
+def graph_for(state: State, key: tuple, make_frame) -> tuple:
+    """The captured frame under ``key`` (``(cfg, device)`` or ``(cfg,
+    device, name)``) holding ``state``: where one is held with the same
+    tensor shapes and dtypes, ``state`` is copied into its buffers and
+    (graph, 0) returned; else the key's graph is freed, ``make_frame()``
+    gives (frame function, aux), ``_capture`` runs its warm-up frame and
+    captures it, and (graph, 1) is returned (the warm-up is the call's
+    first frame, whose output the buffers hold)."""
+    sig = _signature(state)
+    graph = _GRAPHS.get(key)
+    if graph is not None and graph.signature == sig:
+        _copy_into(graph.static, state)
+        return graph, 0
+    _release(key)
+    frame, aux = make_frame()
+    graph = _GRAPHS[key] = _capture(state, frame, sig, aux)
+    return graph, 1
+
+
+def _capture(state: State, frame, signature: tuple, aux=None) -> _Graph:
+    """One uncaptured ``frame(state)`` on the device's capture stream (the
+    warm-up: it builds the frame's kernels before capture, since a build
+    must not run inside one, and makes K4's and K6's scan scratch for that
+    stream, which the captured launches then use), its output copied into
+    buffers of its own; then one ``frame`` of those buffers captured with
+    the copy of its output back into them.  ``frame`` maps a State to the
+    next one; whatever else it writes (``aux``) must be device memory
+    made before the call."""
     dev = state.bodies.pos.device
     cur = torch.cuda.current_stream(dev)
     side = _STREAMS.get(dev)
@@ -358,12 +397,12 @@ def _capture(state: State, cfg: SimConfig, signature: tuple) -> _Graph:
         side = _STREAMS[dev] = torch.cuda.Stream(dev)
     side.wait_stream(cur)
     with torch.cuda.stream(side):
-        static = _map(step(state, cfg), torch.clone)
+        static = _map(frame(state), torch.clone)
         reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()
         graph.capture_begin()
         try:
-            _copy_into(static, step(static, cfg))
+            _copy_into(static, frame(static))
         except BaseException:
             # end the capture so the stream is usable, then raise the fault
             try:
@@ -375,24 +414,32 @@ def _capture(state: State, cfg: SimConfig, signature: tuple) -> _Graph:
         pool = torch.cuda.memory_reserved(dev) - reserved
     cur.wait_stream(side)
     return _Graph(graph=graph, static=static, signature=signature,
-                  pool_bytes=pool)
+                  pool_bytes=pool, aux=aux)
+
+
+def _release(key: tuple) -> None:
+    graph = _GRAPHS.pop(key, None)
+    if graph is not None:
+        torch.cuda.current_stream(key[1]).synchronize()
 
 
 def release_graphs(cfg: SimConfig = None, device=None) -> None:
     """Frees the captured frames of ``cfg`` (every configuration where
-    None) on ``device`` (every device where None), once the device has
-    finished their replays (the current stream is waited for)."""
+    None) on ``device`` (every device where None), ``rollout``'s and
+    ``debug.checked_rollout``'s, once the device has finished their
+    replays (the current stream is waited for)."""
     for key in [k for k in _GRAPHS
                 if (cfg is None or k[0] == cfg)
                 and (device is None or k[1] == torch.device(device))]:
-        torch.cuda.current_stream(key[1]).synchronize()
-        del _GRAPHS[key]
+        _release(key)
 
 
 def graph_info() -> list:
-    """Each captured frame: its configuration, device and private pool
-    bytes."""
-    return [dict(cfg=k[0], device=str(k[1]), pool_bytes=g.pool_bytes)
+    """Each captured frame: its configuration, device, frame ("step" for
+    ``rollout``'s, else the name in its key) and private pool bytes."""
+    return [dict(cfg=k[0], device=str(k[1]),
+                 frame=k[2] if len(k) > 2 else "step",
+                 pool_bytes=g.pool_bytes)
             for k, g in _GRAPHS.items()]
 
 

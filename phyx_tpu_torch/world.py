@@ -121,6 +121,27 @@ class SceneBuilder:
         b.active[:k] = True
         return st
 
+    def to_oracle(self):
+        """Build the matching NumPy-oracle world (same bodies, same cfg)."""
+        from phyx_tpu_torch.oracle.engine import OracleWorld
+        w = OracleWorld(self.cfg)
+        for r in self._rows:
+            w.add_box(r["pos"], r["h"], angle=r["angle"],
+                      friction=r["friction"], restitution=r["restitution"],
+                      static=(r["inv_m"] == 0.0),
+                      velocity=r["vel"], angvel=r["angvel"])
+            if r["inv_m"] > 0.0:
+                w.inv_mass[-1] = r["inv_m"]
+                w.inv_inertia[-1] = r["inv_i"]
+        from phyx_tpu_torch.oracle.engine import _UserJoint
+        for j in self._joints:
+            w.user_joints.append(_UserJoint(
+                kind=j["kind"], b1=j["b1"], b2=j["b2"],
+                a1=np.asarray(j["a1"], np.float64),
+                a2=np.asarray(j["a2"], np.float64),
+                rest=j["rest"], accum=np.zeros(2)))
+        return w
+
 
 class World:
     """Owns a State and steps it.  Without ``state`` it starts from an

@@ -90,7 +90,11 @@ def test_import_leaves_jax_out():
     code = ("import sys\n"
             "import phyx_tpu_torch, phyx_tpu_torch.step, "
             "phyx_tpu_torch.convert, phyx_tpu_torch.scenes, "
-            "phyx_tpu_torch.coloring, phyx_tpu_torch.world\n"
+            "phyx_tpu_torch.coloring, phyx_tpu_torch.world, "
+            "phyx_tpu_torch.oracle, phyx_tpu_torch.checkpoint, "
+            "phyx_tpu_torch.metrics, phyx_tpu_torch.debug, "
+            "phyx_tpu_torch.profiling, phyx_tpu_torch.demos.run_scene, "
+            "phyx_tpu_torch.demos.run_envs\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'phyx_tpu' "
             "or m.startswith('phyx_tpu.'))\n"
