@@ -131,7 +131,8 @@ Phases; any failure raises and the script exits non-zero:
              (bench.py's build_envs: band grid of 8 y-bands x 128 x-cells,
              banded keys, cap 264,192, 839,168 pairs, 17 slabs),
              ``broadphase="sap"`` and the pallas backend, which take K4
-             and K3: 240-frame settle without host waits, slope timing, K4
+             and K3: ``SETTLE_E1024``-frame settle (bench.py's 240, cut
+             for the script's time) without host waits, slope timing, K4
              and K3 once a frame each and no other kernel; every overflow
              counter 0, penetration ratio <= 0.2, finite state;
              env-steps/s beside the reference's per-env fingerprint; stage
@@ -184,7 +185,10 @@ Phases; any failure raises and the script exits non-zero:
              (the 200-frame settle of phase 4) and the 1000-link chain (the
              bench's 300), settled without host waits, slope timing both ways
              with no kernel of K1-K7 launched, the pile's penetration ratio
-             read frame by frame from frame 201 to 330, bench.py's bars (pile:
+             read frame by frame from frame 201 to 330 (the card's input
+             states of its peak frame and the two before it each stepped
+             once on the card and once on the CPU: positions, velocities
+             and the ratio within 1e-4), bench.py's bars (pile:
              penetration ratio <= 0.6, ovf 0; chain: residual <= 1e-2, read at
              bench row C's frame 600, run on to without host waits); the
              stages by CUDA events with no sleep ahead (a colored frame queues
@@ -223,6 +227,26 @@ Phases; any failure raises and the script exits non-zero:
              ``stage_times`` and refused by ``profile_step``; the demos ``run_scene`` (a 500-box pile: metrics,
              checkpoint, resume) and ``run_envs`` (16 envs x 64 boxes) in
              this process.  One ``{"aux": ...}`` line.
+14. multi  — multi-device (M16) on the one card, after ``aux``: a sharded
+             frame card vs CPU (the 8 stacks of tests/test_spatial.py and a
+             200-box pile, 4 shards, "pallas" and "pallas_tiled": one halo
+             exchange equal to the bit, ``halo_overflow`` included, one
+             frame within 1e-4); row D's 100k avalanche (the avalanche
+             phase's settled state) in 4 x-bands through
+             ``spatial_rollout`` (a graph of whole 4-shard frames, K3 once a
+             shard) in chunks of 10, rebalanced where a chunk overflows its
+             halo, row D's bar and ``halo_overflow`` 0 on the last chunk,
+             two replays equal to two uncaptured sharded frames to the bit,
+             slope timing both ways, 20 sharded frames against 20
+             unsharded (max |dpos|, beside the reference's 0.12 envelope);
+             bench row E's 1024 envs as 4 stacked groups of 256
+             (``concat_envs_grouped``, ``sharded_mega_step``: K4 and K3 a
+             group) equal to the bit to each group's own ``rollout`` over 10
+             frames, overflow 0, env-steps/s both ways; and 64 envs of 256
+             boxes as a stacked batch (``sharded_env_step``) equal to the
+             bit to each env's own 10 steps.  One ``{"multi": ...}`` line,
+             printed after the profiler's session with the launches of a
+             replayed frame of each.
 
 Prints a JSON line per main-path phase (physics, rates, stage times), the
 auxiliaries' line, a JSON line of the colored frames' breakdown, one of
@@ -235,6 +259,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1017,6 +1042,36 @@ LAUNCH_MARKS = dict(K1=("visit_levels", "RowsMap"),
                     K6=("chunked_onepass",), K7=("warp_sweep",))
 
 
+# the profiler session's device events and the profiler's warnings
+_SESSION: dict = {}
+
+
+def _profiled_calls(calls: dict, launched: dict, host_ms: dict):
+    """One torch.profiler session of every call in ``calls``, each queued
+    behind a sleep kernel; fills each call's wrapper launches and host ms
+    to queue it.  Returns the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # the first launches after the session starts can go unrecorded
+        # (a fast host reaches them before the collection does): a
+        # preamble of kernels that no marker counts, then a pause
+        warm = torch.zeros((1,), device="cuda")
+        for _ in range(8):
+            warm.add_(1.0)
+        _sync()
+        time.sleep(0.2)
+        for name, (_, fn) in calls.items():
+            torch.cuda._sleep(PROFILE_SLEEP_CYCLES)
+            _reset_counts()
+            t0 = time.perf_counter()
+            fn()
+            host_ms[name] = (time.perf_counter() - t0) * 1e3
+            launched[name] = _counts()
+        _sync()
+    return prof
+
+
 def _kernels_a_call() -> dict:
     """The names of the CUDA kernels one call of each probe in ``_PROBES``
     launches, and, for one call of each entry of ``_FRAMES``: the count,
@@ -1031,41 +1086,61 @@ def _kernels_a_call() -> dict:
     each probe launches exactly one kernel and each frame entry at least
     one."""
     import collections
+    import tempfile
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
     calls = {**_PROBES, **_FRAMES}
     for _, fn in calls.values():
         fn()                  # warm-up: builds, caches and captures outside
     _sync()
     launched, host_ms = {}, {}
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for name, (_, fn) in calls.items():
-            torch.cuda._sleep(PROFILE_SLEEP_CYCLES)
-            _reset_counts()
-            t0 = time.perf_counter()
-            fn()
-            host_ms[name] = (time.perf_counter() - t0) * 1e3
-            launched[name] = _counts()
-        _sync()
-    events = sorted((e for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
-    names, seen, sleep_ms = iter(calls), {}, {}
+    # the profiler's own warnings (CUPTI's dropped records among them) go
+    # to the process's stderr: kept for the session's record, then passed on
+    sys.stderr.flush()
+    saved_fd, log = os.dup(2), tempfile.TemporaryFile()
+    os.dup2(log.fileno(), 2)
+    try:
+        prof = _profiled_calls(calls, launched, host_ms)
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+    finally:
+        sys.stderr.flush()
+        os.dup2(saved_fd, 2)
+        os.close(saved_fd)
+        log.seek(0)
+        text = log.read().decode(errors="replace")
+        log.close()
+        sys.stderr.write(text)
+    warnings = [line.strip() for line in text.splitlines()
+                if any(w in line.lower() for w in ("drop", "cupti", "lost"))]
+    _SESSION.update(device_events=len(events), calls=len(calls),
+                    profiler_warnings=warnings[:20],
+                    profiler_warning_lines=len(warnings))
+    print(f"# profiler session: {len(events)} device events for "
+          f"{len(calls)} calls; {len(warnings)} lines of the profiler's "
+          f"warnings name drops, CUPTI or losses: {warnings[:5]}",
+          flush=True)
+    marks = [e for e in events
+             if "spin_kernel" in e.name or "sleep" in e.name.lower()]
+    if len(marks) != len(calls):
+        raise AssertionError(f"the trace holds {len(marks)} sleep kernels "
+                             f"for {len(calls)} calls ({len(events)} device "
+                             f"events; the profiler warned {warnings[:5]}): "
+                             "it lost or gained some")
+    names, seen, sleep_ms, current = iter(calls), {}, {}, None
     for e in events:
         if "spin_kernel" in e.name or "sleep" in e.name.lower():
-            key = next(names)
-            seen[key] = []
-            sleep_ms[key] = e.time_range.elapsed_us() / 1e3
-        elif seen:
-            seen[list(seen)[-1]].append(e)
+            current = seen[next(names)] = []
+            sleep_ms[list(seen)[-1]] = e.time_range.elapsed_us() / 1e3
+        elif current is not None:
+            current.append(e)
     out = {}
     for name, (where, _) in _PROBES.items():
         kernels = [e.name for e in seen.get(name, [])]
         if name not in seen or len(kernels) != 1:
             raise AssertionError(f"one {name} call at {where} launched "
-                                 f"{kernels} (device events: "
-                                 f"{[e.name for e in events]})")
+                                 f"{len(kernels)} kernels: {kernels[:8]}")
         print(f"# kernels a call: one {name} call at {where} launches "
               f"{kernels}", flush=True)
         out[name] = kernels
@@ -1168,13 +1243,35 @@ def phase_compare_emit() -> dict:
     return out
 
 
+def _close(host, card, what: str) -> float:
+    """Every State tensor of ``card`` against ``host`` (the same frame on
+    the CPU): integers equal, floats within 1e-4.  Returns the max float
+    diff."""
+    import dataclasses
+
+    import numpy as np
+    worst = 0.0
+    for rec in ("bodies", "joints", "cache", "stats"):
+        for f in dataclasses.fields(getattr(host, rec)):
+            a = getattr(getattr(host, rec), f.name).numpy()
+            b = getattr(getattr(card, rec), f.name).cpu().numpy()
+            if a.dtype.kind in "biu":
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"{what}: {rec}.{f.name} differs "
+                                         "between the card and the CPU")
+            elif a.size:
+                d = float(np.abs(a.astype(np.float64) - b).max())
+                worst = max(worst, d)
+                if not d <= 1e-4:
+                    raise AssertionError(f"{what}: {rec}.{f.name} off by "
+                                         f"{d}")
+    return worst
+
+
 def phase_step_parity() -> float:
     """The whole step on the card against the same step on the CPU (whose
     stages the CPU tests hold to the JAX package), re-synced every frame:
     integers exact, floats within 1e-4.  Returns the max float diff."""
-    import dataclasses
-
-    import numpy as np
     from phyx_tpu_torch import SimConfig, scenes
     from phyx_tpu_torch.convert import state_from_numpy, state_to_numpy
     from phyx_tpu_torch.parallel.envs import concat_envs
@@ -1232,30 +1329,13 @@ def phase_step_parity() -> float:
     for what, cfg, st, kernels in cases:
         for frame in range(10):
             _reset_counts()
-            card = state_to_numpy(step(state_from_numpy(
-                state_to_numpy(st), "cuda"), cfg))
+            card = step(_moved(st, "cuda"), cfg)
             launches = _counts()
             if launches != {k: int(k in kernels) for k in launches}:
                 raise AssertionError(f"{what} frame {frame}: launches "
                                      f"{launches}")
             st = step(st, cfg)
-            host = state_to_numpy(st)
-            for rec in ("bodies", "joints", "cache", "stats"):
-                for f in dataclasses.fields(getattr(host, rec)):
-                    a = getattr(getattr(host, rec), f.name)
-                    b = getattr(getattr(card, rec), f.name)
-                    if a.dtype.kind in "biu":
-                        if not np.array_equal(a, b):
-                            raise AssertionError(
-                                f"{what} frame {frame}: {rec}.{f.name} "
-                                "differs between the card and the CPU")
-                    elif a.size:
-                        d = float(np.abs(a.astype(np.float64) - b).max())
-                        worst = max(worst, d)
-                        if not d <= 1e-4:
-                            raise AssertionError(
-                                f"{what} frame {frame}: {rec}.{f.name} "
-                                f"off by {d}")
+            worst = max(worst, _close(st, card, f"{what} frame {frame}"))
         print(f"# step parity: {what}, 10 frames, card vs CPU: integers "
               f"equal, max float diff so far {worst}", flush=True)
         # the frame captured (a warm-up frame and 2 replays), then two
@@ -1501,15 +1581,15 @@ def _step_loop(st, cfg, n: int):
 
 
 def _slope(run, st, cfg, n: int, kernels: tuple, what: str,
-           warmup: int = 0) -> tuple:
+           warmup: int = 0, times: int = 1) -> tuple:
     """Frames timed by the slope t(2n) - t(n) of ``run(st, cfg, frames)``
     after a discarded warm-up window (``warmup`` frames, n by default: the
     first window after the probe can carry a one-off cost, which would
     lower the slope), the launch counts zeroed just before and read just
-    after: each kernel named in ``kernels`` must launch once a frame, every
-    other never (replays pass none: they launch from the graph, past every
-    wrapper).  Returns (state, ms a frame, dict of the windows' seconds
-    and the counted launches)."""
+    after: each kernel named in ``kernels`` must launch ``times`` times a
+    frame (once a shard or a group), every other never (replays pass none:
+    they launch from the graph, past every wrapper).  Returns (state, ms a
+    frame, dict of the windows' seconds and the counted launches)."""
     st = run(st, cfg, warmup or n)
     _sync()
     _reset_counts()
@@ -1521,10 +1601,11 @@ def _slope(run, st, cfg, n: int, kernels: tuple, what: str,
     _sync()
     t2 = time.perf_counter()
     launches = _counts()
-    if launches != {k: 3 * n if k in kernels else 0 for k in launches}:
+    if launches != {k: 3 * n * times if k in kernels else 0
+                    for k in launches}:
         raise AssertionError(f"{what}: launches {launches} in {3 * n} "
-                             f"frames, expected {kernels} once a frame and "
-                             "no other kernel")
+                             f"frames, expected {kernels} {times} x a frame "
+                             "and no other kernel")
     per_frame = ((t2 - t1) - (t1 - t0)) / n
     if not per_frame > 0.0:
         raise AssertionError(f"{what}: slope timing not positive: "
@@ -1547,21 +1628,21 @@ def _probe(run, st, cfg) -> tuple:
     return st, max(4, min(100, int(WINDOW_S / max(frame_s, 1e-3) / 3)))
 
 
-def _host_ms_replayed(st, cfg, frames: int = 5) -> float:
-    """The host's ms a replayed frame: the wall clock of ``rollout``
-    queuing ``frames`` replays (and the copies of the state in and out)
-    from an idle device, over ``frames``."""
+def _host_ms_replayed(st, cfg, frames: int = 5, run=None) -> float:
+    """The host's ms a replayed frame: the wall clock of ``rollout`` (or
+    ``run(st, cfg, frames)``) queuing ``frames`` replays (and the copies of
+    the state in and out) from an idle device, over ``frames``."""
     from phyx_tpu_torch.step import rollout
     _sync()
     t0 = time.perf_counter()
-    rollout(st, cfg, frames)
+    (run or rollout)(st, cfg, frames)
     host = time.perf_counter() - t0
     _sync()
     return host * 1e3 / frames
 
 
 def _timed(st, cfg, kernels: tuple, both_ways: bool = False,
-           steps: int = 0):
+           steps: int = 0, run=None, frame=None, times: int = 1):
     """Frames of a settled scene timed through ``rollout`` (graph replays;
     a frame not captured yet is captured in the first window) by
     ``_slope``, n from a two-frame probe, or with ``steps`` as bench.py
@@ -1569,32 +1650,51 @@ def _timed(st, cfg, kernels: tuple, both_ways: bool = False,
     ``steps`` and 2 ``steps``.  With ``both_ways``, from the same state,
     then uncaptured (a loop of ``step``) in the same way, n from its own
     probe (``steps`` where given: then both ways time the same frames).
-    The host's ms a replayed frame (``_host_ms_replayed``).  Checks the
-    replayed state finite and returns it: (state, dict of the numbers and
-    its stats)."""
+    The host's ms a replayed frame (``_host_ms_replayed``).  A stacked
+    state (shards, groups, envs) passes ``run(state, frames)`` for its
+    replays and ``frame(state)`` for one uncaptured frame, which launches
+    each kernel of ``kernels`` ``times`` times, and ``steps``; its record
+    adds the wall clock of queuing one uncaptured frame from an idle
+    device and leaves the stats to the caller.  Checks the replayed state
+    finite and returns it: (state, dict of the numbers and its stats)."""
     import torch
     from phyx_tpu_torch.step import rollout, stats_dict
+    replay = rollout if run is None else (lambda s, _, k: run(s, k))
+
+    def loop(s, c, k):
+        if frame is None:
+            return _step_loop(s, c, k)
+        for _ in range(k):
+            s = frame(s)
+        return s
+
     st0, probe = st, 0
     if steps:
         n, warmup = steps, 3 * steps
     else:
-        st, n = _probe(rollout, st, cfg)
+        st, n = _probe(replay, st, cfg)
         probe, warmup = 2, n
-    st, ms, rec = _slope(rollout, st, cfg, n, (), "replayed", warmup)
+    st, ms, rec = _slope(replay, st, cfg, n, (), "replayed", warmup)
     out = dict(steps_per_s=1e3 / ms, frame_ms=ms,
-               host_ms_replayed=_host_ms_replayed(st, cfg),
+               host_ms_replayed=_host_ms_replayed(st, cfg, run=replay),
                frames_timed=3 * n, frames_total=probe + warmup + 3 * n,
                **rec)
     if both_ways:
         if steps:
             st_u = st0
         else:
-            st_u, n = _probe(_step_loop, st0, cfg)
-        _, ms, rec = _slope(_step_loop, st_u, cfg, n, kernels, "uncaptured",
-                            3 * n if steps else n)
+            st_u, n = _probe(loop, st0, cfg)
+        _, ms, rec = _slope(loop, st_u, cfg, n, kernels, "uncaptured",
+                            3 * n if steps else n, times)
         out.update(steps_per_s_uncaptured=1e3 / ms, frame_ms_uncaptured=ms,
                    frames_timed_uncaptured=3 * n,
                    **{f"{k}_uncaptured": v for k, v in rec.items()})
+        if frame is not None:
+            _sync()
+            t0 = time.perf_counter()
+            frame(st)
+            out["host_enqueue_ms"] = (time.perf_counter() - t0) * 1e3
+            _sync()
         print(f"# both ways: {1e3 / out['frame_ms']:.2f} steps/s replayed "
               f"({out['frame_ms']:.3f} ms a frame, host "
               f"{out['host_ms_replayed']:.3f} ms a frame to queue), "
@@ -1602,8 +1702,9 @@ def _timed(st, cfg, kernels: tuple, both_ways: bool = False,
     if not (torch.isfinite(st.bodies.pos).all().item()
             and torch.isfinite(st.bodies.vel).all().item()):
         raise AssertionError("non-finite body state")
-    out.update(max_bodies=cfg.max_bodies, max_pairs=cfg.max_pairs,
-               max_joints=cfg.max_joints, **stats_dict(st.stats))
+    if run is None:
+        out.update(max_bodies=cfg.max_bodies, max_pairs=cfg.max_pairs,
+                   max_joints=cfg.max_joints, **stats_dict(st.stats))
     return st, out
 
 
@@ -1619,26 +1720,32 @@ _TRACED: dict = {}
 TRACED_REPLAYS = 3
 
 
-def _trace(label: str, st, cfg, kernels: tuple, stages: tuple = ()) -> None:
+def _trace(label: str, st, cfg, kernels: tuple, stages: tuple = (),
+           frame=None, run=None, times: int = 1) -> None:
     """Hands the profiler's session (``_FRAMES``) one uncaptured ``step``
-    of ``st`` (or, where ``stages`` names entries of ``_FRAMES`` that make
-    up its frame, those) and one ``rollout`` of ``TRACED_REPLAYS`` graph
-    replays from ``st``, for ``_replays_traced``."""
+    of ``st`` (or ``frame(st)``; or, where ``stages`` names entries of
+    ``_FRAMES`` that make up its frame, those) and one ``rollout`` (or
+    ``run(st, frames)``) of ``TRACED_REPLAYS`` graph replays from ``st``,
+    for ``_replays_traced``, which holds the uncaptured frame to launching
+    each kernel of ``kernels`` ``times`` times (once a shard or a
+    group)."""
     from phyx_tpu_torch.step import rollout, step
     if not stages:
         stages = (f"{label}: step",)
-        _FRAMES[stages[0]] = (f"the settled {label}", lambda: step(st, cfg))
+        _FRAMES[stages[0]] = (f"the settled {label}", lambda: (
+            frame or (lambda s: step(s, cfg)))(st))
     _FRAMES[f"{label}: replays"] = (
         f"the settled {label}, {TRACED_REPLAYS} graph replays",
-        lambda: rollout(st, cfg, TRACED_REPLAYS))
-    _TRACED[label] = (kernels, stages, f"{label}: replays")
+        lambda: (run or (lambda s, k: rollout(s, cfg, k)))(
+            st, TRACED_REPLAYS))
+    _TRACED[label] = (kernels, stages, f"{label}: replays", times)
 
 
 def _register(label: str, out: dict, st, cfg, kernels: tuple,
-              stages: tuple = ()) -> None:
+              stages: tuple = (), **trace) -> None:
     """Keeps the record ``out`` of a timed scene under ``label`` and
-    traces its frame (``_trace``)."""
-    _trace(label, st, cfg, kernels, stages)
+    traces its frame (``_trace``, with its keywords ``trace``)."""
+    _trace(label, st, cfg, kernels, stages, **trace)
     _TIMED[label] = out
     _SETTLED[label] = (st, cfg)
 
@@ -1662,7 +1769,7 @@ def _replays_traced(a_call: dict) -> dict:
     device busy ms, span ms and idle share (1 - busy / span) over the
     rollout call (its copies of the state in and out included)."""
     out = {}
-    for label, (kernels, stages, replays) in _TRACED.items():
+    for label, (kernels, stages, replays, times) in _TRACED.items():
         launched, hand = dict.fromkeys(LAUNCH_MARKS, 0), {}
         for key in stages:
             for k, c in a_call[key]["launched"].items():
@@ -1671,9 +1778,10 @@ def _replays_traced(a_call: dict) -> dict:
                 hand[name] = hand.get(name, 0) + c
         rec = a_call[replays]
         marks = _marks(rec["hand"])
-        if launched != {k: int(k in kernels) for k in launched}:
+        if launched != {k: times * int(k in kernels) for k in launched}:
             raise AssertionError(f"{label}: an uncaptured frame launched "
-                                 f"{launched}, expected {kernels} once")
+                                 f"{launched}, expected {kernels} {times} "
+                                 "x each")
         if _marks(hand) != launched:
             raise AssertionError(f"{label}: the trace of an uncaptured frame "
                                  f"shows {_marks(hand)}, the wrappers "
@@ -2300,6 +2408,10 @@ def _sweep_device_ms(args, reps: int) -> dict:
 # a sanity band for the per-env physics, not a target
 REF_E = dict(contacts_per_env=823080 / 1024, penetration_ratio=0.025)
 ENVS = 1024
+# E-1024's settle in this script: bench.py settles 240 frames; the cut
+# (~53 s at ~0.28 s a frame) makes room for the multi phase within the
+# script's time (PERF.md §4)
+SETTLE_E1024 = 50
 
 
 def phase_envs1024(card: str) -> dict:
@@ -2313,7 +2425,8 @@ def phase_envs1024(card: str) -> dict:
     from phyx_tpu_torch.broadphase import _sap_tiled_sort_stage, compute_aabbs
     from phyx_tpu_torch.demos.run_envs import build_envs
     from phyx_tpu_torch.step import solve_inputs
-    st, cfg, out = _drive("envs", ENVS * 256, 240, ("K3", "K4"), card,
+    st, cfg, out = _drive("envs", ENVS * 256, SETTLE_E1024, ("K3", "K4"),
+                          card,
                           built=build_envs(ENVS, 256))
     pen_ratio = _envs_bar(out, ENVS)
     st, stages = _stage_ms(st, cfg, frames=3)
@@ -2876,12 +2989,17 @@ def _run_to(st, cfg, frame: int, last: int) -> dict:
 def _penetration_trace(st, cfg, frame: int, last: int) -> dict:
     """The penetration ratio (max penetration over the box half, 0.5) of
     every frame after ``frame`` up to ``last``, one replayed frame at a
-    time, read after each: the peak and its frame, beside the 0.6 bar."""
+    time, read after each: the peak and its frame, beside the 0.6 bar.
+    The card's input states of the peak frame and of the two before it
+    are kept and re-synced on the CPU (``_resync_on_cpu``)."""
     from phyx_tpu_torch.step import rollout
-    ratios = []
+    ratios, inputs, peak_inputs = [], [], []
     for _ in range(frame, last):
-        st = rollout(st, cfg, 1)
+        inputs = (inputs + [st])[-3:]
+        st = rollout(st, cfg, 1)      # a copy: later replays leave it
         ratios.append(st.stats.max_penetration.item() / 0.5)
+        if ratios[-1] == max(ratios):
+            peak_inputs = inputs
     peak = max(ratios)
     out = dict(frames=[frame + 1, last], peak=peak,
                peak_frame=frame + 1 + ratios.index(peak),
@@ -2891,6 +3009,45 @@ def _penetration_trace(st, cfg, frame: int, last: int) -> dict:
           f"penetration ratio peak {peak:.4f} at frame {out['peak_frame']}"
           f", mean {out['mean']:.4f}, {out['frames_above_bar']} frames "
           "above the 0.6 bar", flush=True)
+    out["resync"] = _resync_on_cpu(peak_inputs, cfg, out["peak_frame"])
+    return out
+
+
+def _resync_on_cpu(inputs: list, cfg, peak_frame: int) -> dict:
+    """Each of the card's input states ``inputs`` (those of the frames up
+    to ``peak_frame``) stepped one frame on the card and one frame on the
+    CPU (where the colored solve's conflicting sums go through
+    ``index_add``): max |dpos| and |dvel| over the bodies and |dratio| of
+    the penetration ratio, each within ``COLORED_ATOL`` (the re-synced
+    tolerance of tests/test_torch_colored.py), or the card's frame is not
+    the CPU's."""
+    import torch
+    from phyx_tpu_torch.step import step
+    t0 = time.perf_counter()
+    rows = []
+    for k, st in enumerate(inputs):
+        card, host = step(st, cfg), step(_moved(st, "cpu"), cfg)
+        diff = {f"d{name}": float((getattr(card.bodies, name).cpu().double()
+                                   - getattr(host.bodies, name).double())
+                                  .abs().max()) for name in ("pos", "vel")}
+        ratio = [x.stats.max_penetration.item() / 0.5 for x in (card, host)]
+        if not all(torch.isfinite(x.bodies.pos).all().item()
+                   for x in (card, host)):
+            raise AssertionError("re-synced colored frame: non-finite")
+        rows.append(dict(frame=peak_frame - len(inputs) + 1 + k, **diff,
+                         dratio=abs(ratio[0] - ratio[1]), ratio_card=ratio[0],
+                         ratio_cpu=ratio[1]))
+    worst = {k: max(r[k] for r in rows) for k in ("dpos", "dvel", "dratio")}
+    out = dict(frames=rows, **worst, atol=COLORED_ATOL,
+               seconds=time.perf_counter() - t0)
+    print(f"# colored 10k pile re-synced on the CPU, frames "
+          f"{rows[0]['frame']}-{rows[-1]['frame']} (the peak's and the two "
+          f"before): max |dpos| {worst['dpos']}, |dvel| {worst['dvel']}, "
+          f"|dratio| {worst['dratio']} (atol {COLORED_ATOL}), "
+          f"{out['seconds']:.1f} s", flush=True)
+    if not all(v <= COLORED_ATOL for v in worst.values()):
+        raise AssertionError(f"the colored pile's frame on the card is not "
+                             f"the CPU's: {rows}")
     return out
 
 
@@ -2989,11 +3146,7 @@ def _colored_fallback_frame() -> float:
     1024-slot blocks) on the card against the CPU: integers equal, floats
     within 1e-4, no kernel of K1-K7 launched.  Returns the max float
     diff."""
-    import dataclasses
-
-    import numpy as np
     from phyx_tpu_torch import SimConfig, scenes, tiling
-    from phyx_tpu_torch.convert import state_from_numpy, state_to_numpy
     from phyx_tpu_torch.step import rollout, step
     cfg = SimConfig(max_bodies=64, max_pairs=5888, broadphase="sap_grid",
                     sap_window=32, solver_backend="pallas")
@@ -3001,24 +3154,10 @@ def _colored_fallback_frame() -> float:
         raise AssertionError("the fallback configuration is not one")
     st = rollout(scenes.pile(cfg, 60, seed=3).build("cpu"), cfg, 5)
     _reset_counts()
-    card = state_to_numpy(step(_moved(st, "cuda"), cfg))
+    card = step(_moved(st, "cuda"), cfg)
     if any(_counts().values()):
         raise AssertionError(f"colored fallback launched {_counts()}")
-    host = state_to_numpy(step(st, cfg))
-    worst = 0.0
-    for rec in ("bodies", "joints", "cache", "stats"):
-        for f in dataclasses.fields(getattr(host, rec)):
-            a = getattr(getattr(host, rec), f.name)
-            b = getattr(getattr(card, rec), f.name)
-            if a.dtype.kind in "biu":
-                if not np.array_equal(a, b):
-                    raise AssertionError(f"colored fallback: {rec}."
-                                         f"{f.name} differs")
-            elif a.size:
-                worst = max(worst, float(np.abs(a.astype(np.float64)
-                                                - b).max()))
-    if not worst <= 1e-4:
-        raise AssertionError(f"colored fallback: card vs CPU off by {worst}")
+    worst = _close(step(st, cfg), card, "colored fallback")
     print(f"# colored fallback: a 60-box \"pallas\" frame at 11,776 contact "
           f"slots, card vs CPU: integers equal, max float diff {worst}",
           flush=True)
@@ -3103,8 +3242,6 @@ def _aux_checkpoint(tmp: str) -> tuple:
     card: the loaded state and the saved one each replay 30 frames, equal
     to the bit; the file loaded with a CPU ``like`` equals the card
     state's CPU copy.  Returns (record, the settled state, cfg)."""
-    import os
-
     from phyx_tpu_torch import checkpoint, scenes
     from phyx_tpu_torch.step import _map, rollout
     cfg = _bench_cfg("pile", 1000)
@@ -3265,7 +3402,6 @@ def _aux_demos(tmp: str) -> dict:
     each returns 0 and the JSONL parses."""
     import contextlib
     import io
-    import os
 
     from phyx_tpu_torch.demos import run_envs, run_scene
     m1, m2 = os.path.join(tmp, "m1.jsonl"), os.path.join(tmp, "m2.jsonl")
@@ -3327,6 +3463,411 @@ def phase_aux() -> dict:
         out["demos"] = _aux_demos(tmp)
     out["phase_s"] = time.perf_counter() - t0
     print(f"# aux phase: {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+# the multi phase (M16): row D's 100k avalanche in shards, row E's 1024
+# envs in groups, bench.py's default env count as a stacked batch
+SHARDS = 4
+GROUPS = 4
+BATCH_ENVS = 64
+# the profiler's session traces the first envs of the batch only: 64 envs
+# are ~37.6k kernels a frame, about as many device events as every other
+# traced scene together
+TRACE_BATCH_ENVS = 8
+# the sharded avalanche runs chunks of this many frames, reading the
+# counters once a chunk, at least SPATIAL_CHUNKS of them and at most
+# SPATIAL_CHUNKS_MAX (a chunk that overflowed its halo is rebalanced and
+# followed by another)
+SPATIAL_CHUNK = 10
+SPATIAL_CHUNKS = 3
+SPATIAL_CHUNKS_MAX = 6
+# the reference's cut-error envelope on a settled 1.5k-box grid at 8
+# shards (tests/test_spatial.py:360): printed beside the 100k's, no gate
+SPATIAL_ENVELOPE = 0.12
+# frames of each slope window of the multi phase's scenes (half of row
+# D's --steps, for the script's time)
+MULTI_STEPS = 5
+MULTI_GROUPED_STEPS = 3
+
+
+def _stacked_part(batch, i: int):
+    """Slice ``i`` of a stacked state (a shard, a group, an env)."""
+    from phyx_tpu_torch.step import _map
+    return _map(batch, lambda t: t[i])
+
+
+def _small_sharded_scene(scene: str, cfg):
+    """tests/test_spatial.py:36's 8 stacks of 3 on one ground, or a
+    200-box pile, built on the card."""
+    from phyx_tpu_torch import scenes
+    from phyx_tpu_torch.world import SceneBuilder
+    if scene == "pile 200":
+        return scenes.pile(cfg, 200, seed=0).build()
+    sb = SceneBuilder(cfg)
+    sb.add_box((0.0, -1.0), (64.0, 1.0), static=True)
+    for k in range(8):
+        for j in range(3):
+            sb.add_box((-28.0 + 8.0 * k, 0.5 + 1.02 * j), (0.5, 0.5))
+    return sb.build()
+
+
+def _multi_small() -> dict:
+    """A sharded frame, card against CPU: the 8 stacks and a 200-box pile
+    in 4 shards (``suggest_halo``), under "pallas" and "pallas_tiled",
+    developed 3 sharded frames on the card; then one halo exchange on the
+    card equal to the CPU's to the bit (``halo_overflow`` included) and
+    one sharded frame (uncaptured, each shard's kernels launched once)
+    within 1e-4 of the CPU's, integers exact."""
+    import dataclasses
+
+    from phyx_tpu_torch import SimConfig
+    from phyx_tpu_torch.parallel.spatial import (_exchange_halo,
+                                                 shard_spatial, spatial_frame,
+                                                 suggest_halo)
+    from phyx_tpu_torch.step import stats_dict
+    base = dict(max_bodies=256, max_pairs=2048, broadphase="sap",
+                sap_window=64)
+    out = {}
+    for scene in ("stacks", "pile 200"):
+        for backend in ("pallas", "pallas_tiled"):
+            what = f"{scene}, {backend}, {SHARDS} shards"
+            tiled = backend == "pallas_tiled"
+            cfg = SimConfig(**base, solver_backend=backend,
+                            **(dict(tile_stride=256, tile_halo=256)
+                               if tiled else {}))
+            st = _small_sharded_scene(scene, cfg)
+            halo = suggest_halo(st, SHARDS)
+            sst, lcfg, meta = shard_spatial(
+                st, cfg, SHARDS, halo,
+                max_pairs_per_shard=1024 if tiled else None)
+            for _ in range(3):
+                sst = spatial_frame(sst, lcfg, meta.dims)
+            host = _moved(sst, "cpu")
+            b_card, ovf_card = _exchange_halo(sst.bodies, meta.dims)
+            b_host, ovf_host = _exchange_halo(host.bodies, meta.dims)
+            for f in dataclasses.fields(b_host):
+                if not _bit_equal(getattr(b_card, f.name).cpu(),
+                                  getattr(b_host, f.name)):
+                    raise AssertionError(f"{what}: the halo exchange's "
+                                         f"{f.name} differs on the card")
+            if not _bit_equal(ovf_card.cpu(), ovf_host):
+                raise AssertionError(f"{what}: halo_overflow differs")
+            _reset_counts()
+            card = spatial_frame(sst, lcfg, meta.dims)
+            launched = {k: v for k, v in _counts().items() if v}
+            if not launched or any(v != SHARDS for v in launched.values()):
+                raise AssertionError(f"{what}: a sharded frame launched "
+                                     f"{_counts()}")
+            err = _close(spatial_frame(host, lcfg, meta.dims), card, what)
+            out[what] = dict(halo=halo, dims=list(meta.dims),
+                             halo_overflow=ovf_host.tolist(),
+                             launched=launched, max_abs_err=err,
+                             contacts=stats_dict(_stacked_part(
+                                 card, 0).stats)["num_contacts"])
+            print(f"# multi: {what} (H {halo}, L {lcfg.max_bodies}): the "
+                  f"halo exchange on the card == the CPU's to the bit "
+                  f"(halo_overflow {ovf_host.tolist()}); a sharded frame "
+                  f"card vs CPU max float diff {err}, launches {launched}",
+                  flush=True)
+    return out
+
+
+def _multi_spatial(card: str) -> dict:
+    """Row D's 100k avalanche (bench.py's settings, the ``pallas``
+    backend, settled ``SETTLE_100K`` frames unsharded by its phase) in
+    ``SHARDS`` x-bands (``suggest_halo``; each shard's pair budget the
+    global one's share rounded up to 512, so its contact slots come in
+    whole blocks and each shard takes the tiled tier, K3): chunks of
+    ``SPATIAL_CHUNK`` frames through ``spatial_rollout`` (a graph replay of
+    whole 4-shard frames), the counters read once a chunk, a chunk that
+    overflowed its halo rebalanced with a fresh ``suggest_halo`` (the old
+    layout's graph freed first); row D's bar on the last chunk with
+    ``halo_overflow`` 0; two replays equal to two uncaptured sharded
+    frames to the bit; the frame timed both ways; and 20 sharded frames
+    from the settled state, unsharded, against 20 unsharded frames: max
+    and quantiles of |dpos| over the active bodies beside the reference's
+    envelope (no gate: the reference never ran this scale), and the same
+    for one shard (no cut, the rows reordered), which shows how far the
+    row order alone carries a flowing avalanche."""
+    import torch
+    from phyx_tpu_torch import scenes
+    from phyx_tpu_torch.parallel.spatial import (rebalance, shard_spatial,
+                                                 spatial_frame,
+                                                 spatial_rollout,
+                                                 suggest_halo, unshard)
+    from phyx_tpu_torch.step import (_GRAPHS, release_graphs, rollout,
+                                     stats_dict)
+    from phyx_tpu_torch.tiling import block_pair_budget
+    from phyx_tpu_torch.tune import rollout_autotuned
+    boxes = 100_000
+    t0 = time.perf_counter()
+    if f"avalanche {boxes}" in _SETTLED:
+        st, cfg = _SETTLED[f"avalanche {boxes}"]
+    else:
+        cfg = _bench_cfg("avalanche", boxes)
+        st, cfg = rollout_autotuned(scenes.avalanche(cfg, boxes, seed=0)
+                                    .build(), cfg, SETTLE_100K, chunk=10)
+    release_graphs()
+    per = block_pair_budget(-(-cfg.max_pairs // SHARDS))
+    halo = suggest_halo(st, SHARDS)
+    t1 = time.perf_counter()
+    sst, lcfg, meta = shard_spatial(st, cfg, SHARDS, halo,
+                                    max_pairs_per_shard=per)
+    shard_s = time.perf_counter() - t1
+
+    def layout(meta, lcfg) -> dict:
+        D, S, H, M = meta.dims
+        rec = dict(D=D, S=S, H=H, M=M, L=lcfg.max_bodies,
+                   max_pairs_per_shard=lcfg.max_pairs)
+        print(f"# multi: the 100k avalanche in {D} shards: D {D}, S {S}, "
+              f"H {H}, M {M}, L {lcfg.max_bodies}; "
+              f"{lcfg.max_pairs} pairs a shard", flush=True)
+        return rec
+
+    layouts = [layout(meta, lcfg)]
+    chunks, rebalances = [], []
+    _sync()
+    _reset_counts()
+    while True:
+        sst = spatial_rollout(sst, lcfg, meta, SPATIAL_CHUNK)
+        stats = stats_dict(_stacked_part(sst, 0).stats)
+        chunks.append(dict(frames=SPATIAL_CHUNK, **stats))
+        if stats["halo_overflow"] > 0:
+            release_graphs(lcfg)
+            halo = suggest_halo(unshard(sst, meta, st), SHARDS)
+            sst, lcfg, meta = rebalance(sst, meta, st, cfg, halo=halo,
+                                        max_pairs_per_shard=per)
+            rebalances.append(dict(chunk=len(chunks), halo=halo))
+            print(f"# multi: chunk {len(chunks)} overflowed its halo "
+                  f"({stats['halo_overflow']}): rebalanced, "
+                  f"suggest_halo {halo}", flush=True)
+            layouts.append(layout(meta, lcfg))
+        elif len(chunks) >= SPATIAL_CHUNKS:
+            break
+        if len(chunks) >= SPATIAL_CHUNKS_MAX:
+            raise AssertionError(f"the sharded avalanche still overflows "
+                                 f"its halo after {len(chunks)} chunks")
+    launched = _counts()
+    if launched != {k: SHARDS * len(layouts) * int(k == "K3")
+                    for k in launched}:
+        raise AssertionError(f"sharded avalanche chunks: launches {launched}"
+                             f", expected K3 {SHARDS} x a layout's warm-up "
+                             "frame")
+    last = chunks[-1]
+    bar = dict(penetration_ratio=last["max_penetration"] / 0.5, bar=2.0,
+               overflow={k: last[k] for k in (
+                   "pair_overflow", "halo_overflow", "ovf_window",
+                   "ovf_slots", "ovf_drop", "ovf_band", "ovf_slab")})
+    bar["passed"] = (not any(bar["overflow"].values())
+                     and bar["penetration_ratio"] <= 2.0
+                     and last["num_contacts"] > 0
+                     and torch.isfinite(sst.bodies.pos).all().item())
+    print(f"# multi: the sharded avalanche's last chunk: {bar}", flush=True)
+    if not bar["passed"]:
+        raise AssertionError(f"the sharded 100k avalanche missed row D's "
+                             f"bar: {bar}")
+    key = (lcfg, sst.bodies.pos.device, ("spatial", meta.dims))
+    if key not in _GRAPHS:
+        raise AssertionError("no captured sharded frame to replay")
+    _reset_counts()
+    replayed = spatial_rollout(sst, lcfg, meta, 2)
+    if any(_counts().values()):
+        raise AssertionError(f"two sharded replays launched {_counts()}")
+    stepped = spatial_frame(spatial_frame(sst, lcfg, meta.dims), lcfg,
+                            meta.dims)
+    _states_equal(replayed, stepped, "two sharded replays against two "
+                  "uncaptured sharded frames")
+    print("# multi: two replays of the sharded 100k frame == two uncaptured "
+          "sharded frames, every State tensor to the bit", flush=True)
+    sst, timed = _timed(
+        sst, lcfg, ("K3",), both_ways=True, steps=MULTI_STEPS,
+        run=lambda s, k: spatial_rollout(s, lcfg, meta, k),
+        frame=lambda s: spatial_frame(s, lcfg, meta.dims), times=SHARDS)
+    unsharded = _TIMED.get(f"avalanche {boxes}", {})
+    out = dict(scene="avalanche", boxes=boxes, shards=SHARDS, **timed,
+               max_bodies=lcfg.max_bodies, max_pairs=lcfg.max_pairs,
+               **stats_dict(_stacked_part(sst, 0).stats),
+               unsharded_frame_ms=unsharded.get("frame_ms"),
+               unsharded_frame_ms_uncaptured=unsharded.get(
+                   "frame_ms_uncaptured"))
+    _register(f"spatial {boxes}", out, sst, lcfg, ("K3",),
+              frame=lambda s: spatial_frame(s, lcfg, meta.dims),
+              run=lambda s, k: spatial_rollout(s, lcfg, meta, k),
+              times=SHARDS)
+    print(f"# multi: the sharded 100k frame {timed['frame_ms']:.3f} ms "
+          f"replayed ({timed['frame_ms_uncaptured']:.3f} uncaptured) beside "
+          f"the unsharded 100k frame of this run "
+          f"{out['unsharded_frame_ms']} ms", flush=True)
+
+    # 20 frames from the settled state, sharded and unsharded; beside them
+    # one shard (no cut: the same bodies, reordered statics first and the
+    # dynamics by x), which shows what the row order alone moves
+    solo = rollout(st, cfg, 20)
+    release_graphs(cfg)
+    act = st.bodies.active
+    cut = {}
+    for d in (SHARDS, 1):
+        s2, l2, m2 = shard_spatial(st, cfg, d, meta.dims.H,
+                                   max_pairs_per_shard=per * SHARDS // d)
+        back = unshard(spatial_rollout(s2, l2, m2, 20), m2, st)
+        release_graphs(l2)
+        err = (back.bodies.pos[act] - solo.bodies.pos[act]).abs().amax(dim=1)
+        q = torch.quantile(err.double(), torch.tensor(
+            [0.5, 0.99, 0.999], dtype=torch.float64, device=err.device))
+        cut[d] = dict(max=err.max().item(), p50=q[0].item(), p99=q[1].item(),
+                      p999=q[2].item(), above_envelope=int(
+                          (err > SPATIAL_ENVELOPE).sum()))
+        print(f"# multi: 20 frames from the settled avalanche in {d} "
+              f"shard(s), unsharded, against 20 unsharded frames: |dpos| "
+              f"over the {int(act.sum())} active bodies {cut[d]} (the "
+              f"reference's envelope on a settled 1.5k-box grid at 8 "
+              f"shards: {SPATIAL_ENVELOPE}; not a gate)", flush=True)
+    cut_err = cut[SHARDS]["max"]
+    out.update(layouts=layouts, shard_s=shard_s, chunks=chunks,
+               rebalances=rebalances, quality=bar, card=card,
+               cut_error_20_frames=cut_err, cut_error_quantiles=cut[SHARDS],
+               reorder_error_20_frames_one_shard=cut[1],
+               cut_error_envelope_reference=SPATIAL_ENVELOPE,
+               seconds=time.perf_counter() - t0)
+    return out
+
+
+def _multi_grouped(card: str) -> dict:
+    """Row E's 1024 envs x 256 boxes as ``GROUPS`` stacked mega-scenes of
+    256 envs (``concat_envs_grouped``, ``demos.run_envs.envs_layout``'s
+    policy for 256 envs): 10 frames of ``sharded_mega_step`` (one graph of
+    a frame of all groups) equal to the bit to each group's own
+    ``rollout``; every overflow counter 0; env-steps/s both ways."""
+    from phyx_tpu_torch.demos.run_envs import env_builders, envs_layout
+    from phyx_tpu_torch.parallel.envs import (concat_envs_grouped, each,
+                                              sharded_mega_step)
+    from phyx_tpu_torch.step import release_graphs, rollout, stats_dict, step
+    t0 = time.perf_counter()
+    per = ENVS // GROUPS
+    cfg, bands = envs_layout(per, 256)
+    stacked, _, _ = concat_envs_grouped(env_builders(cfg, ENVS, 256), cfg,
+                                        GROUPS, **bands)
+    build_s = time.perf_counter() - t0
+    _sync()
+    _reset_counts()
+    grouped = sharded_mega_step(cfg, 10)(stacked)
+    launched = _counts()
+    if launched != {k: GROUPS * int(k in ("K3", "K4")) for k in launched}:
+        raise AssertionError(f"grouped E-1024: launches {launched}, "
+                             f"expected K3 and K4 {GROUPS} x (the warm-up "
+                             "frame)")
+    for g in range(GROUPS):
+        _states_equal(_stacked_part(grouped, g),
+                      rollout(_stacked_part(stacked, g), cfg, 10),
+                      f"group {g} of the grouped E-1024 against its own "
+                      "rollout")
+    release_graphs(cfg)
+    stats = [stats_dict(_stacked_part(grouped, g).stats)
+             for g in range(GROUPS)]
+    ovf = {k: sum(x[k] for x in stats) for k in (
+        "pair_overflow", "ovf_window", "ovf_slots", "ovf_drop", "ovf_band",
+        "ovf_slab")}
+    contacts = sum(x["num_contacts"] for x in stats)
+    print(f"# multi: grouped E-1024 ({GROUPS} x {per} envs, cap "
+          f"{cfg.max_bodies}): 10 frames == each group's own rollout to the "
+          f"bit; overflow {ovf}, {contacts} contacts", flush=True)
+    if any(ovf.values()) or contacts <= 0:
+        raise AssertionError(f"grouped E-1024: overflow {ovf}, contacts "
+                             f"{contacts}")
+
+    def frame(s):
+        return each(lambda x: step(x, cfg), s)
+
+    def run(s, k):
+        return sharded_mega_step(cfg, k)(s)
+
+    grouped, timed = _timed(grouped, cfg, ("K3", "K4"), both_ways=True,
+                            steps=MULTI_GROUPED_STEPS, run=run, frame=frame,
+                            times=GROUPS)
+    out = dict(scene="envs grouped", boxes=ENVS * 256, envs=ENVS,
+               groups=GROUPS, **timed,
+               env_steps_per_s=timed["steps_per_s"] * ENVS,
+               env_steps_per_s_uncaptured=timed["steps_per_s_uncaptured"]
+               * ENVS, max_bodies=cfg.max_bodies, max_pairs=cfg.max_pairs,
+               overflow=ovf, contacts_per_env=contacts / ENVS,
+               build_s=build_s, card=card)
+    _register(f"grouped envs {ENVS}", out, grouped, cfg, ("K3", "K4"),
+              frame=frame, run=run, times=GROUPS)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"# multi: grouped E-1024 {out['env_steps_per_s']:.1f} env-steps/s"
+          f" replayed, {out['env_steps_per_s_uncaptured']:.1f} uncaptured",
+          flush=True)
+    return out
+
+
+def _multi_batch() -> dict:
+    """bench.py's default 64 envs of 256 boxes as a stacked batch
+    (``make_env_batch``, each env ``envs_layout``'s one-env scene):
+    10 frames of ``sharded_env_step`` (one graph of the 64 env steps)
+    equal to the bit to each env's own 10 uncaptured ``step``s; the
+    kernels a frame launches (the warm-up frame's, by the wrappers); the
+    replayed frame timed by the slope (env-steps/s beside E-64's
+    mega-scene); its first ``TRACE_BATCH_ENVS`` envs traced."""
+    from phyx_tpu_torch.demos.run_envs import env_builders, envs_layout
+    from phyx_tpu_torch.parallel import make_env_batch, sharded_env_step
+    from phyx_tpu_torch.parallel.envs import each
+    from phyx_tpu_torch.step import _map, stats_dict, step
+    t0 = time.perf_counter()
+    cfg, _ = envs_layout(1, 256)
+    states = [sb.build() for sb in env_builders(cfg, BATCH_ENVS, 256)]
+    batch = make_env_batch(states)
+    vstep = sharded_env_step(cfg)
+    _sync()
+    _reset_counts()
+    out_batch = batch
+    for _ in range(10):
+        out_batch = vstep(out_batch)
+    launched = {k: v for k, v in _counts().items() if v}
+    if not launched or any(v != BATCH_ENVS for v in launched.values()):
+        raise AssertionError(f"env batch: the warm-up frame launched "
+                             f"{_counts()}")
+    kernels = tuple(sorted(launched))
+    for e, st in enumerate(states):
+        _states_equal(_stacked_part(out_batch, e), _step_loop(st, cfg, 10),
+                      f"env {e} of the batch against its own steps")
+    print(f"# multi: a batch of {BATCH_ENVS} envs x 256 boxes (cap "
+          f"{cfg.max_bodies}): 10 frames == each env's own 10 steps to the "
+          f"bit; a frame launches {kernels} {BATCH_ENVS} x each", flush=True)
+    _, ms, rec = _slope(lambda s, _, k: sharded_env_step(cfg, k)(s),
+                        out_batch, None, MULTI_GROUPED_STEPS, (),
+                        "the env batch replayed")
+    print(f"# multi: the env batch replayed {ms:.3f} ms a frame, "
+          f"{BATCH_ENVS * 1e3 / ms:.1f} env-steps/s", flush=True)
+    _trace(f"env batch {TRACE_BATCH_ENVS}",
+           _map(out_batch, lambda t: t[:TRACE_BATCH_ENVS].clone()), cfg,
+           kernels, frame=lambda s: each(lambda x: step(x, cfg), s),
+           run=lambda s, k: sharded_env_step(cfg, k)(s),
+           times=TRACE_BATCH_ENVS)
+    return dict(envs=BATCH_ENVS, boxes=256, max_bodies=cfg.max_bodies,
+                max_pairs=cfg.max_pairs, kernels=list(kernels),
+                frame_ms=ms, env_steps_per_s=BATCH_ENVS * 1e3 / ms, **rec,
+                seconds=time.perf_counter() - t0,
+                **stats_dict(_stacked_part(out_batch, 0).stats))
+
+
+def phase_multi(card: str) -> dict:
+    """Multi-device (M16) on one card: a sharded frame card vs CPU, the
+    100k avalanche in ``SHARDS`` shards, the grouped E-1024 and the
+    64-env batch.  The shards, groups and envs share the card and step in
+    turn; each frame of all of them is one captured graph."""
+    from phyx_tpu_torch.step import release_graphs
+    t0 = time.perf_counter()
+    release_graphs()
+    out = dict(small=_multi_small())
+    out["spatial"] = _multi_spatial(card)
+    release_graphs()
+    out["grouped"] = _multi_grouped(card)
+    release_graphs()
+    out["batch"] = _multi_batch()
+    release_graphs()
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"# multi phase: {out['phase_s']:.1f} s", flush=True)
     return out
 
 
@@ -3423,10 +3964,19 @@ def main() -> int:
     aux = phase_aux()
     lap("aux")
     print(json.dumps({"aux": aux}), flush=True)
+    multi = phase_multi(card)
+    lap("multi")
     release_graphs()
     a_call = _kernels_a_call()
     traced = _replays_traced(a_call)
     lap("profiler")
+    print(json.dumps({"profiler_session": _SESSION}), flush=True)
+    multi["launches_a_replayed_frame"] = {
+        label: {k: v // TRACED_REPLAYS for k, v in
+                traced[label]["launches"].items() if v}
+        for label in (f"spatial {100_000}", f"grouped envs {ENVS}",
+                      f"env batch {TRACE_BATCH_ENVS}")}
+    print(json.dumps({"multi": multi}), flush=True)
     print(json.dumps({"colored": _colored_summary(colored, a_call, traced)}),
           flush=True)
     print(json.dumps({"frames": _frames_summary(a_call, traced)}),
@@ -3485,6 +4035,9 @@ def main() -> int:
              launches_envs1024=launches(f"envs {ENVS}", "K3"), **envs["k3"],
              launches_avalanche20k=launches("avalanche 20000", "K3"),
              launches_avalanche100k=launches("avalanche 100000", "K3"),
+             launches_spatial100k=launches("spatial 100000", "K3"),
+             launches_grouped_envs1024=launches(f"grouped envs {ENVS}",
+                                                "K3"),
              **{f"{key}_{name}": v for name, rec in (
                  ("avalanche20k", aval20k), ("avalanche100k", aval100k))
                 for key, v in rec["k3"].items()}),
@@ -3499,6 +4052,8 @@ def main() -> int:
              source="phyx_tpu_torch/csrc/sweep_tiled.cu",
              replaces="phyx_tpu/kernels/sweep.py:114",
              launches=launches(f"envs {ENVS}", "K4"),
+             launches_grouped_envs1024=launches(f"grouped envs {ENVS}",
+                                                "K4"),
              **{key: envs[key] for key in ("max_abs_err", "ms", "plain_ms",
                                            "bound_ms", "bound_by")},
              library_ms=None,
@@ -3531,6 +4086,10 @@ def main() -> int:
                       "max_abs_err_counts_device_memory")}),
     ]
     for k in kernels:
+        name = k["name"].split("(")[1].rstrip(")")
+        batch = launches(f"env batch {TRACE_BATCH_ENVS}", name)
+        if batch:
+            k[f"launches_env_batch{TRACE_BATCH_ENVS}"] = batch
         k["max_abs_err"] = max(v for key, v in k.items()
                                if key.startswith("max_abs_err"))
         if k["launches"] <= 0:

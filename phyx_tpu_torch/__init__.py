@@ -23,8 +23,14 @@ policies (M13); and the auxiliaries (M15): ``checkpoint`` (npz files
 interchangeable with the JAX package's), ``metrics`` (``snapshot``,
 ``MetricsLogger``), ``debug`` (``checked_step``, ``checked_rollout``),
 ``profiling`` (``profile_step``), the f64 ``oracle`` with
-``SceneBuilder.to_oracle``, and the headless ``demos``.  Entry points put
-state on the card unless the caller names another device.
+``SceneBuilder.to_oracle``, and the headless ``demos``; and multi-device
+(M16) on one card: ``parallel.spatial`` (one scene in x-bands with a halo
+exchange: ``shard_spatial``, ``spatial_rollout``, ``unshard``,
+``rebalance``) and ``parallel.envs``' stacked batches
+(``make_env_batch``, ``sharded_env_step``, ``concat_envs_grouped``,
+``sharded_mega_step``), whose shards, envs and groups share one device.
+Entry points put state on the card unless the caller names another
+device.
 
     from phyx_tpu_torch import SimConfig, scenes
     from phyx_tpu_torch.step import step, rollout

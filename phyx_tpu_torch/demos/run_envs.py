@@ -23,15 +23,14 @@ from phyx_tpu_torch.parallel.envs import concat_envs, env_positions
 from phyx_tpu_torch.step import rollout
 
 
-def envs_scene(num_envs: int, boxes_per_env: int):
+def envs_layout(num_envs: int, boxes_per_env: int):
     """bench.py's ``build_envs`` policy (bench row E) with its defaults and
-    the pallas backend: per-env piles (seed = env, ground half 30) on a
-    band grid of x cells 80 apart and, from 64 envs, 8 y-bands 400 apart,
-    which keeps coordinates small where an x-line would reach float32
-    spacings above the contact slop; banded sweep keys, so each y-band
-    sweeps in its own x region; ``broadphase="sap"``, window 96 / 8 hits,
-    no segmented sort, no gates.  Returns (cfg, mega builder, env slices,
-    env offsets)."""
+    the pallas backend: a band grid of x cells 80 apart and, from 64 envs,
+    8 y-bands 400 apart, which keeps coordinates small where an x-line
+    would reach float32 spacings above the contact slop; banded sweep
+    keys, so each y-band sweeps in its own x region; ``broadphase="sap"``,
+    window 96 / 8 hits, no segmented sort, no gates.  Returns (cfg, the
+    ``concat_envs`` band keywords)."""
     total = num_envs * (boxes_per_env + 1) + 8
     cap = max(1024, -(-total // 1024) * 1024)
     # a 256-box pile is ~23 columns (~24 units) wide: ground_half 30 and
@@ -56,10 +55,21 @@ def envs_scene(num_envs: int, boxes_per_env: int):
         sweep_band_y0=-200.0,
         sweep_band_span=span if banded else 0.0,
     )
-    builders = [scenes.pile(cfg, boxes_per_env, seed=s, ground_half=30.0)
-                for s in range(num_envs)]
-    mega, slices, offsets = concat_envs(builders, cfg, band_width=80.0,
-                                        y_bands=y_bands, band_height=400.0)
+    return cfg, dict(band_width=80.0, y_bands=y_bands, band_height=400.0)
+
+
+def env_builders(cfg: SimConfig, num_envs: int, boxes_per_env: int):
+    """The policy's per-env piles: seed = env, ground half 30."""
+    return [scenes.pile(cfg, boxes_per_env, seed=s, ground_half=30.0)
+            for s in range(num_envs)]
+
+
+def envs_scene(num_envs: int, boxes_per_env: int):
+    """``envs_layout``'s mega-scene.  Returns (cfg, mega builder, env
+    slices, env offsets)."""
+    cfg, bands = envs_layout(num_envs, boxes_per_env)
+    mega, slices, offsets = concat_envs(
+        env_builders(cfg, num_envs, boxes_per_env), cfg, **bands)
     return cfg, mega, slices, offsets
 
 

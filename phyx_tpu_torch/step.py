@@ -297,13 +297,23 @@ def rollout(state: State, cfg: SimConfig, num_steps: int) -> State:
     The graphs of a device share K4's and K6's scan scratch
     (``kernels.sweep._scan_scratch``): replay them one at a time, on one
     stream or in turn."""
+    return run_frames(state, (cfg, state.bodies.pos.device),
+                      lambda s: step(s, cfg), num_steps)
+
+
+def run_frames(state: State, key: tuple, frame, num_steps: int) -> State:
+    """``num_steps`` frames of ``frame`` (State -> State, no host read):
+    on the CPU a loop; on the card the replays of the frame captured under
+    ``key`` (``graph_for``: the first call for a key and state layout runs
+    one frame uncaptured and captures the next), returning a copy.  The
+    graph replay of ``rollout``, of the sharded scene
+    (``parallel.spatial``) and of the stacked batches
+    (``parallel.envs``)."""
     if num_steps <= 0 or state.bodies.pos.device.type != "cuda":
         for _ in range(num_steps):
-            state = step(state, cfg)
+            state = frame(state)
         return state
-    graph, done = graph_for(
-        state, (cfg, state.bodies.pos.device),
-        lambda: (lambda s: step(s, cfg), None))
+    graph, done = graph_for(state, key, lambda: (frame, None))
     for _ in range(num_steps - done):
         graph.graph.replay()
     return _map(graph.static, torch.clone)

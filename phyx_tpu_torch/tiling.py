@@ -51,6 +51,15 @@ def _blocks_ok(c_cap: int) -> bool:
     return c_cap % BLK == 0 and c_cap >= 2 * BLK
 
 
+def block_pair_budget(max_pairs: int) -> int:
+    """The least pair budget at or above ``max_pairs`` whose contact slots
+    (2 x max_pairs) come in whole blocks, at least two: below it
+    ``resolve_tiled`` is False, and a ``"pallas"`` scene above the
+    streamed budget falls back to the colored solve."""
+    half = BLK // 2
+    return max(BLK, -(-max_pairs // half) * half)
+
+
 def slab_dims(cfg: SimConfig, n: int) -> Tuple[int, int, int, int, int, int]:
     """(K, H, W, rps, n_slabs, npad): stride K rows per slab (128-row zero
     block + rps bodies), halo H, window W = K + H, and the embedded table's

@@ -169,6 +169,32 @@ def test_checkpoint_without_overflow_split_loads(tmp_path):
         checkpoint.load(old, like)
 
 
+def test_checkpoint_spatial_cycle(tmp_path):
+    """tests/test_checkpoint.py:71 (its frame counts cut from 20 + 10 +
+    10 to 10 + 3 + 3: the scalar plain solve on the CPU takes ~0.35 s a
+    shard frame here): a sharded run
+    unsharded, saved, loaded and re-sharded resumes equal to the bit to
+    the run re-sharded from the state before the save (both restart their
+    caches empty)."""
+    from phyx_tpu_torch.parallel.spatial import (shard_spatial,
+                                                 spatial_rollout, unshard)
+    cfg = SimConfig(max_bodies=128, max_pairs=1024, broadphase="n2",
+                    solver_backend="pallas")
+    st = rollout(scenes.pile(cfg, 60, seed=3).build("cpu"), cfg, 10)
+    sstate, lcfg, meta = shard_spatial(st, cfg, 4, halo=16)
+    sstate = spatial_rollout(sstate, lcfg, meta, 3)
+    glob = unshard(sstate, meta, st)
+    p = str(tmp_path / "spatial.npz")
+    checkpoint.save(p, glob)
+    glob2 = checkpoint.load(p, scenes.pile(cfg, 60, seed=3).build("cpu"))
+    assert_bit_equal(glob2, glob)
+    sa, la, ma = shard_spatial(glob, cfg, 4, halo=16)
+    sb, lb, mb = shard_spatial(glob2, cfg, 4, halo=16)
+    assert int(glob.stats.num_contacts) > 0
+    assert_bit_equal(spatial_rollout(sa, la, ma, 3),
+                     spatial_rollout(sb, lb, mb, 3))
+
+
 # --- metrics ---------------------------------------------------------------
 
 @pytest.mark.parametrize("scene,frames,kw", [
