@@ -247,6 +247,14 @@ Phases; any failure raises and the script exits non-zero:
              bit to each env's own 10 steps.  One ``{"multi": ...}`` line,
              printed after the profiler's session with the launches of a
              replayed frame of each.
+15. bench  — the port's CLI in a process of its own, after ``multi``:
+             ``python3 -m phyx_tpu_torch.bench --boxes 1000`` (row B' at
+             bench.py's other defaults: 300-frame settle, n = 100), within
+             ``BENCH_TIMEOUT_S``: exit code 0; its last line bench.py's
+             JSON line with ``backend`` "cuda", ``solver_backend``
+             "pallas", the quality verdict passing and ``pair_overflow``
+             0; its stderr's launches K2 (its warm-up frame) and no other
+             kernel.  One ``{"bench": ...}`` line.
 
 Prints a JSON line per main-path phase (physics, rates, stage times), the
 auxiliaries' line, a JSON line of the colored frames' breakdown, one of
@@ -280,16 +288,8 @@ def _sync():
 
 def _wrappers() -> dict:
     """Every kernel's wrapper, by name."""
-    from phyx_tpu_torch.kernels.contact_solver import solve_contacts_fused
-    from phyx_tpu_torch.kernels.contact_solver_streamed import \
-        solve_contacts_streamed
-    from phyx_tpu_torch.kernels.contact_solver_tiled import (
-        solve_contacts_tiled, solve_contacts_tiled2)
-    from phyx_tpu_torch.kernels.sweep import sweep_emit, sweep_emit_v2
-    from phyx_tpu_torch.kernels.sweep_tiled import sweep_emit_tiled
-    return dict(K1=solve_contacts_streamed, K2=solve_contacts_fused,
-                K3=solve_contacts_tiled2, K4=sweep_emit_tiled,
-                K5=solve_contacts_tiled, K6=sweep_emit_v2, K7=sweep_emit)
+    from phyx_tpu_torch.kernels import wrappers
+    return wrappers()
 
 
 def _plains() -> dict:
@@ -1508,21 +1508,15 @@ def _per_env(out: dict, envs: int):
     return None if rate is None else rate * envs
 
 
-def _bench_cfg(scene: str, boxes: int):
-    """bench.py's build() configuration for a scene (bench.py:160-198)."""
-    from phyx_tpu_torch import SimConfig
-    cap = 1
-    while cap < boxes + 8:
-        cap *= 2
-    joint_scene = scene in ("chain", "bridge", "net")
-    pairs_per_box = (2 if joint_scene
-                     else 8 if scene == "avalanche" else 3.2)
-    return SimConfig(max_bodies=cap,
-                     max_pairs=max(1024, (int(boxes * pairs_per_box) + 511)
-                                   // 512 * 512),
-                     max_joints=cap if joint_scene else 0,
-                     broadphase="sap_grid", sap_window=192, sap_hits=8,
-                     num_colors=24, solver_backend="pallas")
+def _bench_row(scene: str, boxes: int, *flags):
+    """Bench row ``scene`` at ``boxes`` boxes, built on the card as
+    ``python -m phyx_tpu_torch.bench --scene scene --boxes boxes *flags``
+    builds it (``bench.build_row``: bench.py's configuration policy and
+    CLI defaults): (cfg, state)."""
+    from phyx_tpu_torch import bench
+    args = bench.parser().parse_args(
+        ["--scene", scene, "--boxes", str(boxes), *flags])
+    return bench.build_row(args, "cuda")
 
 
 def _drive(scene: str, boxes: int, settle: int, kernels: tuple, card: str,
@@ -1539,15 +1533,9 @@ def _drive(scene: str, boxes: int, settle: int, kernels: tuple, card: str,
     frames (``_timed``).  Returns (state, cfg, dict of the run's
     numbers)."""
     import torch
-    from phyx_tpu_torch import scenes
     from phyx_tpu_torch.step import release_graphs, rollout
     release_graphs()
-    if built is None:
-        cfg = _bench_cfg(scene, boxes)
-        kw = {"seed": 0} if scene in ("pile", "avalanche") else {}
-        st = getattr(scenes, scene)(cfg, boxes, **kw).build()
-    else:
-        cfg, st = built
+    cfg, st = _bench_row(scene, boxes) if built is None else built
     _sync()
     _reset_counts()
     t0 = time.perf_counter()
@@ -2592,12 +2580,11 @@ def phase_pile500(card: str) -> dict:
     and K2 once a frame; then K7 against its plain version at the settled
     frame, and timed, and K2 against its plain version there, and
     timed."""
-    from phyx_tpu_torch import scenes
     from phyx_tpu_torch.broadphase import sap_kernel_inputs
     from phyx_tpu_torch.step import integrate_velocities
-    cfg = _bench_cfg("pile", 500).replace(broadphase="sap")
-    st, cfg, out = _drive("pile", 500, 400, ("K2", "K7"), card, built=(
-        cfg, scenes.pile(cfg, 500, seed=0).build()), both_ways=True)
+    st, cfg, out = _drive("pile", 500, 400, ("K2", "K7"), card,
+                          built=_bench_row("pile", 500, "--broadphase",
+                                           "sap"), both_ways=True)
     pen_ratio = out["max_penetration"] / 0.5
     if (out["num_contacts"] <= 0 or out["pair_overflow"] != 0
             or not pen_ratio <= 0.6):
@@ -2675,16 +2662,15 @@ def phase_avalanche(card: str, boxes: int, settle: int,
     ``slab_levels``, levels a pass, timed on those passes and on all of
     them.  bench.py's timing (``_timed`` with ``steps``) reads the bar at
     the frame bench.py reads it, 60 frames after the settle."""
-    from phyx_tpu_torch import scenes, tiling
+    from phyx_tpu_torch import tiling
     from phyx_tpu_torch.broadphase import suggest_sap_hits, suggest_sap_window
     from phyx_tpu_torch.step import graph_info, release_graphs, solve_inputs
     from phyx_tpu_torch.tune import rollout_autotuned, tune_config
     release_graphs()
-    cfg = _bench_cfg("avalanche", boxes)
+    cfg, st = _bench_row("avalanche", boxes)
     if (cfg.max_bodies, cfg.max_pairs) != ROW_D.get(boxes, ()):
         raise AssertionError(f"avalanche {boxes}: cap {cfg.max_bodies}, "
                              f"{cfg.max_pairs} pairs, not bench.py's")
-    st = scenes.avalanche(cfg, boxes, seed=0).build()
     chunk = 10 if boxes >= 50_000 else min(10, 50)   # bench.py, --steps 10
     retunes, pools = [], []
 
@@ -3067,19 +3053,16 @@ def _colored_scene(scene: str, boxes: int, settle: int, card: str,
     ``verdict_frame``), stage times, two replays against two steps, the
     checks of ``_colored_checks``, and the frame's stages handed to the
     profiler's count of kernels."""
-    from phyx_tpu_torch import scenes
     from phyx_tpu_torch.step import contact_stage, finish_stage, solve_stage
-    cfg = _bench_cfg(scene, boxes).replace(solver_backend="xla")
-    kw = {"seed": 0} if scene == "pile" else {}
     if scene == "pile":
         def after(st, cfg):
             return _penetration_trace(st, cfg, settle, PILE_TRACE_TO)
     else:
         def after(st, cfg):
             return _run_to(st, cfg, settle, verdict_frame)
-    st, cfg, out = _drive(scene, boxes, settle, (), card, built=(
-        cfg, getattr(scenes, scene)(cfg, boxes, **kw).build()),
-        both_ways=True, after_settle=after)
+    st, cfg, out = _drive(scene, boxes, settle, (), card,
+                          built=_bench_row(scene, boxes, "--backend", "xla"),
+                          both_ways=True, after_settle=after)
     if scene == "pile":
         out["penetration_ratio"] = out["max_penetration"] / 0.5
         ok = out["num_contacts"] > 0 and out["penetration_ratio"] <= 0.6
@@ -3227,14 +3210,11 @@ def _settled(label: str, scene: str, boxes: int, settle: int):
     """The settled state of a timed scene (``_SETTLED``), or, where this
     run has none (the phase called alone), the scene built and settled
     through ``rollout`` as its phase settles it."""
-    from phyx_tpu_torch import scenes
     from phyx_tpu_torch.step import rollout
     if label in _SETTLED:
         return _SETTLED[label]
-    cfg = _bench_cfg(scene, boxes)
-    kw = {"seed": 0} if scene == "pile" else {}
-    return rollout(getattr(scenes, scene)(cfg, boxes, **kw).build(), cfg,
-                   settle), cfg
+    cfg, st = _bench_row(scene, boxes)
+    return rollout(st, cfg, settle), cfg
 
 
 def _aux_checkpoint(tmp: str) -> tuple:
@@ -3242,17 +3222,16 @@ def _aux_checkpoint(tmp: str) -> tuple:
     card: the loaded state and the saved one each replay 30 frames, equal
     to the bit; the file loaded with a CPU ``like`` equals the card
     state's CPU copy.  Returns (record, the settled state, cfg)."""
-    from phyx_tpu_torch import checkpoint, scenes
+    from phyx_tpu_torch import checkpoint
     from phyx_tpu_torch.step import _map, rollout
-    cfg = _bench_cfg("pile", 1000)
-    sb = scenes.pile(cfg, 1000, seed=0)
-    st = rollout(sb.build(), cfg, 60)
+    cfg, built = _bench_row("pile", 1000)
+    st = rollout(built, cfg, 60)
     path = os.path.join(tmp, "pile1k.npz")
     t0 = time.perf_counter()
     checkpoint.save(path, st)
     save_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    loaded = checkpoint.load(path, sb.build())
+    loaded = checkpoint.load(path, built)
     _sync()
     load_s = time.perf_counter() - t0
     if loaded.bodies.pos.device != st.bodies.pos.device:
@@ -3260,7 +3239,7 @@ def _aux_checkpoint(tmp: str) -> tuple:
     _states_equal(loaded, st, "checkpoint: the loaded state")
     _states_equal(rollout(loaded, cfg, 30), rollout(st, cfg, 30),
                   "checkpoint: 30 replayed frames after the load")
-    host = checkpoint.load(path, sb.build("cpu"))
+    host = checkpoint.load(path, _map(built, lambda t: t.cpu()))
     if host.bodies.pos.device.type != "cpu":
         raise AssertionError("checkpoint: a CPU like loaded off the CPU")
     _states_equal(host, _map(st, lambda t: t.cpu()),
@@ -3591,7 +3570,6 @@ def _multi_spatial(card: str) -> dict:
     for one shard (no cut, the rows reordered), which shows how far the
     row order alone carries a flowing avalanche."""
     import torch
-    from phyx_tpu_torch import scenes
     from phyx_tpu_torch.parallel.spatial import (rebalance, shard_spatial,
                                                  spatial_frame,
                                                  spatial_rollout,
@@ -3605,9 +3583,8 @@ def _multi_spatial(card: str) -> dict:
     if f"avalanche {boxes}" in _SETTLED:
         st, cfg = _SETTLED[f"avalanche {boxes}"]
     else:
-        cfg = _bench_cfg("avalanche", boxes)
-        st, cfg = rollout_autotuned(scenes.avalanche(cfg, boxes, seed=0)
-                                    .build(), cfg, SETTLE_100K, chunk=10)
+        cfg, st = _bench_row("avalanche", boxes)
+        st, cfg = rollout_autotuned(st, cfg, SETTLE_100K, chunk=10)
     release_graphs()
     per = block_pair_budget(-(-cfg.max_pairs // SHARDS))
     halo = suggest_halo(st, SHARDS)
@@ -3906,6 +3883,45 @@ def _emit_row(name, replaces, launches, k, small, timed, **extra) -> dict:
                    if key in k}, **extra)
 
 
+# bench.py's command line for the bench phase: row B' (the 1k pile, K2)
+BENCH_ARGS = ("--boxes", "1000")
+BENCH_TIMEOUT_S = 120
+
+
+def phase_bench() -> dict:
+    """Row B' through ``python3 -m phyx_tpu_torch.bench`` in a process of
+    its own (the kernels load from the build this process made): exit
+    code 0, the last line bench.py's JSON line of a passing ``"cuda"`` /
+    ``"pallas"`` row with no overflow, and the launches its stderr
+    reports K2's and no other kernel's.  Returns the line."""
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "phyx_tpu_torch.bench", *BENCH_ARGS],
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    notes = [ln for ln in run.stderr.splitlines() if ln.startswith("# ")]
+    for ln in notes:
+        print(f"# bench: {ln[2:]}", flush=True)
+    if run.returncode != 0:
+        raise AssertionError(f"bench {' '.join(BENCH_ARGS)}: rc "
+                             f"{run.returncode}: {run.stderr[-2000:]}")
+    line = json.loads(run.stdout.strip().splitlines()[-1])
+    extra = line["extra"]
+    if not (extra["backend"] == "cuda" and extra["solver_backend"] == "pallas"
+            and extra["quality"]["pass"] is True
+            and extra["pair_overflow"] == 0 and line["value"] > 0):
+        raise AssertionError(f"bench {' '.join(BENCH_ARGS)}: {line}")
+    launched = [json.loads(ln[len("# launches "):]) for ln in notes
+                if ln.startswith("# launches ")]
+    if not (launched and launched[0]["K2"] > 0
+            and all(v == 0 for k, v in launched[0].items() if k != "K2")):
+        raise AssertionError(f"bench {' '.join(BENCH_ARGS)}: launches "
+                             f"{launched}, expected K2 and no other kernel")
+    print(f"# bench: {wall:.1f} s in all", flush=True)
+    return line
+
+
 def main() -> int:
     import argparse
 
@@ -3966,6 +3982,8 @@ def main() -> int:
     print(json.dumps({"aux": aux}), flush=True)
     multi = phase_multi(card)
     lap("multi")
+    print(json.dumps({"bench": phase_bench()}), flush=True)
+    lap("bench")
     release_graphs()
     a_call = _kernels_a_call()
     traced = _replays_traced(a_call)

@@ -157,11 +157,10 @@ def solver(lib, smem_cols: bool):
 
 def settled_frames() -> dict:
     """K1's inputs at the two frames, each settled without host waits."""
-    from phyx_tpu_torch import scenes
     from phyx_tpu_torch.demos.run_envs import build_envs
     from phyx_tpu_torch.step import rollout, solve_inputs
-    cfg = chip_smoke._bench_cfg("pile", 10_000)
-    st = rollout(scenes.pile(cfg, 10_000, seed=0).build(), cfg, 200)
+    cfg, st = chip_smoke._bench_row("pile", 10_000)
+    st = rollout(st, cfg, 200)
     frames = {"pile10k": solve_inputs(st, cfg)}
     cfg, st = build_envs(64, 256)
     st = rollout(st, cfg, 240)

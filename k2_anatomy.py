@@ -6,9 +6,10 @@ trees of the port in one call.
 ``--tree`` puts DIR first on the import path, so that ``phyx_tpu_torch``
 is that tree's package (a checkout of an earlier commit, say) while the
 helpers come from this tree's ``chip_smoke.py``; without it, this tree's
-own package.  Settles the 1000-link chain (300 frames), the 1k pile (400)
-and the 500-box pile under ``broadphase="sap"`` (400) at bench.py's
-settings, then at each frame: K2's full solve (median of three rounds of
+own package.  The tree's package must hold ``bench.py``: the frames are
+built by its ``bench.build_row``.  Settles the 1000-link chain (300
+frames), the 1k pile (400) and the 500-box pile under
+``broadphase="sap"`` (400) at bench.py's settings, then at each frame: K2's full solve (median of three rounds of
 five launches on CUDA events) and its device time behind a sleep kernel,
 K1 on the same input (equal to K2 on all passes), the levels a pass and
 the share of narrow levels (at most 32 visits), and, where the tree has
@@ -135,7 +136,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("k2_anatomy: no CUDA device")
     import phyx_tpu_torch
-    from phyx_tpu_torch import scenes
     from phyx_tpu_torch.broadphase import sap_kernel_inputs
     from phyx_tpu_torch.kernels import contact_solver as k2mod
     from phyx_tpu_torch.kernels.contact_solver_streamed import (
@@ -154,12 +154,9 @@ def main() -> int:
     frames = (("chain", 1000, 300, None), ("pile", 1000, 400, None),
               ("pile", 500, 400, "sap"))
     for scene, boxes, settle, bp in frames:
-        cfg = cs._bench_cfg(scene, boxes)
-        if bp:
-            cfg = cfg.replace(broadphase=bp)
-        kw = {"seed": 0} if scene == "pile" else {}
-        st = rollout(getattr(scenes, scene)(cfg, boxes, **kw).build(), cfg,
-                     settle)
+        cfg, st = cs._bench_row(scene, boxes,
+                                *(("--broadphase", bp) if bp else ()))
+        st = rollout(st, cfg, settle)
         args = solve_inputs(st, cfg)
         cs._equal("K1 vs K2", solve_contacts_streamed(**args), k2(**args))
         full = statistics.median(cs._kernel_ms(k2, args, reps=5)

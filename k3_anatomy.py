@@ -89,11 +89,10 @@ def build_variants() -> dict:
 def settled_frames() -> dict:
     """{frame: (kernel, its inputs)}, each frame settled without host
     waits."""
-    from phyx_tpu_torch import scenes
     from phyx_tpu_torch.demos.run_envs import build_envs
     from phyx_tpu_torch.step import rollout, solve_inputs
-    cfg = chip_smoke._bench_cfg("pile", 20_000)
-    st = rollout(scenes.pile(cfg, 20_000, seed=0).build(), cfg, 300)
+    cfg, st = chip_smoke._bench_row("pile", 20_000)
+    st = rollout(st, cfg, 300)
     frames = {"pile20k": ("K3", solve_inputs(st, cfg)),
               "pile20k_routed": ("K5", solve_inputs(
                   st, cfg.replace(tiled_routing=False)))}

@@ -95,7 +95,7 @@ def test_import_leaves_jax_out():
             "phyx_tpu_torch.metrics, phyx_tpu_torch.debug, "
             "phyx_tpu_torch.profiling, phyx_tpu_torch.demos.run_scene, "
             "phyx_tpu_torch.demos.run_envs, phyx_tpu_torch.parallel, "
-            "phyx_tpu_torch.parallel.spatial\n"
+            "phyx_tpu_torch.parallel.spatial, phyx_tpu_torch.bench\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'phyx_tpu' "
             "or m.startswith('phyx_tpu.'))\n"
