@@ -1,0 +1,31 @@
+"""The pile: boxes in a near-square grid of columns on a ground plane."""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+from benchmark.scenes import Rows, Scene
+
+
+def make(boxes: int, seed: int, box_half: float = 0.5,
+         jitter: float = 0.1) -> Scene:
+    """Each column position jittered by ``numpy.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    rows = Rows()
+    rows.ground()
+    cols = max(1, int(math.sqrt(boxes * 2)))
+    spacing = box_half * 2.05
+    placed = row = 0
+    while placed < boxes:
+        for c in range(cols):
+            if placed >= boxes:
+                break
+            x = (c - cols / 2) * spacing + rng.uniform(-jitter, jitter) \
+                * box_half
+            rows.box((x, 0.5 + row * spacing), (box_half, box_half),
+                     friction=0.5)
+            placed += 1
+        row += 1
+    return rows.scene()
