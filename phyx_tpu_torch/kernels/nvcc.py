@@ -19,6 +19,8 @@ import shutil
 import subprocess
 import tempfile
 
+from phyx_tpu_torch import tracing
+
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -64,14 +66,21 @@ def library_path(source: pathlib.Path) -> pathlib.Path:
 
 def compile_all(sources) -> dict:
     """Compile every source whose library is missing, one ``nvcc`` each,
-    all started together.  Returns {source name: nvcc's report} for the
+    all started together, inside the host span ``build``
+    (``tracing.span``).  Returns {source name: nvcc's report} for the
     ones compiled now."""
+    missing = [(source, library_path(source)) for source in sources]
+    missing = [(source, so) for source, so in missing if not so.exists()]
+    if not missing:
+        return {}
+    with tracing.span("build"):
+        return _run_nvcc(missing)
+
+
+def _run_nvcc(missing) -> dict:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     running = []
-    for source in sources:
-        so = library_path(source)
-        if so.exists():
-            continue
+    for source, so in missing:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         proc = subprocess.Popen(

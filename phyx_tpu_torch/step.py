@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from phyx_tpu_torch import math2d as m2
-from phyx_tpu_torch import solver, tiling
+from phyx_tpu_torch import solver, tiling, tracing
 from phyx_tpu_torch.broadphase import (Pairs, broadphase, compute_aabbs,
                                        lex_sort_pairs, rank_order)
 from phyx_tpu_torch.cache import build_cache, lex_join, warm_start_from_cache
@@ -208,17 +208,16 @@ def solve_stage(bodies: Bodies, contacts: Contacts, pairs: Pairs,
     return bodies, back[:, 0], back[:, 1], residual, joints, pairs
 
 
-def _no_mark(stage: str) -> None:
-    pass
-
-
-def contact_stage(state: State, cfg: SimConfig, mark=_no_mark):
+def contact_stage(state: State, cfg: SimConfig, mark=None):
     """Everything before the solve: integrate velocities, broadphase,
     jointed-pair exclusion, narrowphase, warm start, prepare and the
     joints' rows.  Returns (bodies, pairs, prepared contacts, joint rows,
     joint warm impulses).  ``mark(stage)`` is called as each stage of
     ``profiling.STAGES`` ends (``profiling.STAGES_JOINTS`` on a scene with
-    joint slots)."""
+    joint slots); None, the default, is the state's device's stage marks
+    (``tracing.stage_marks``)."""
+    if mark is None:
+        mark = tracing.stage_marks(state.bodies.pos.device)
     bodies = integrate_velocities(state.bodies, cfg)
     mark("integrate")
     # jointed scenes: no slab-major routing (the jointed-pair exclusion
@@ -243,9 +242,12 @@ def contact_stage(state: State, cfg: SimConfig, mark=_no_mark):
 def finish_stage(state: State, cfg: SimConfig, bodies: Bodies, joints,
                  pairs, contacts: Contacts, accum_n: torch.Tensor,
                  accum_t: torch.Tensor, residual: torch.Tensor,
-                 mark=_no_mark) -> State:
+                 mark=None) -> State:
     """Everything after the solve: integrate positions, rebuild the cache,
-    emit stats; then ``mark("build_cache")``."""
+    emit stats; then ``mark("build_cache")`` (None, the default, is the
+    state's device's stage marks, ``tracing.stage_marks``)."""
+    if mark is None:
+        mark = tracing.stage_marks(state.bodies.pos.device)
     bodies = integrate_positions(bodies, cfg)
     cache = build_cache(contacts, pairs, accum_n, accum_t)
     stats = SolverStats(
@@ -267,12 +269,20 @@ def finish_stage(state: State, cfg: SimConfig, bodies: Bodies, joints,
     return out
 
 
-def step(state: State, cfg: SimConfig, mark=_no_mark) -> State:
+def step(state: State, cfg: SimConfig, mark=None) -> State:
     """One simulation frame: State -> State, no host round-trip.
     ``mark(stage)`` is called as each stage ends, in the order of
     ``profiling.STAGES`` (``STAGES_JOINTS`` on a scene with joint slots;
-    their solve is the contacts and joints solved together): the stage
-    profiler's hook, which does nothing by default."""
+    their solve is the contacts and joints solved together).  None, the
+    default, is the state's device's stage marks
+    (``tracing.stage_marks``), which also mark the frame's start
+    ("frame"): on the card a one-thread kernel a mark, captured with the
+    frame into ``rollout``'s graph, read by ``tracing.last_frame_ms`` and
+    in a profiler trace.  The stage profiler passes its own hook, which
+    replaces them."""
+    if mark is None:
+        mark = tracing.stage_marks(state.bodies.pos.device)
+        mark("frame")
     bodies, pairs, contacts, joint_rows, joint_warm = contact_stage(
         state, cfg, mark)
     bodies, accum_n, accum_t, residual, joints, pairs = solve_stage(
@@ -308,15 +318,20 @@ def run_frames(state: State, key: tuple, frame, num_steps: int) -> State:
     one frame uncaptured and captures the next), returning a copy.  The
     graph replay of ``rollout``, of the sharded scene
     (``parallel.spatial``) and of the stacked batches
-    (``parallel.envs``)."""
-    if num_steps <= 0 or state.bodies.pos.device.type != "cuda":
-        for _ in range(num_steps):
-            state = frame(state)
-        return state
-    graph, done = graph_for(state, key, lambda: (frame, None))
-    for _ in range(num_steps - done):
-        graph.graph.replay()
-    return _map(graph.static, torch.clone)
+    (``parallel.envs``).  Host spans (``tracing.span``): ``rollout``
+    around the call, ``replay`` around the replays, ``copy_out`` around
+    the copy."""
+    with tracing.span("rollout"):
+        if num_steps <= 0 or state.bodies.pos.device.type != "cuda":
+            for _ in range(num_steps):
+                state = frame(state)
+            return state
+        graph, done = graph_for(state, key, lambda: (frame, None))
+        with tracing.span("replay"):
+            for _ in range(num_steps - done):
+                graph.graph.replay()
+        with tracing.span("copy_out"):
+            return _map(graph.static, torch.clone)
 
 
 @dataclasses.dataclass
@@ -379,15 +394,21 @@ def graph_for(state: State, key: tuple, make_frame) -> tuple:
     (graph, 0) returned; else the key's graph is freed, ``make_frame()``
     gives (frame function, aux), ``_capture`` runs its warm-up frame and
     captures it, and (graph, 1) is returned (the warm-up is the call's
-    first frame, whose output the buffers hold)."""
-    sig = _signature(state)
-    graph = _GRAPHS.get(key)
-    if graph is not None and graph.signature == sig:
-        _copy_into(graph.static, state)
+    first frame, whose output the buffers hold).  Host spans
+    (``tracing.span``): ``copy_in`` around the signature check and the
+    copy, ``capture`` around a capture."""
+    with tracing.span("copy_in"):
+        sig = _signature(state)
+        graph = _GRAPHS.get(key)
+        held = graph is not None and graph.signature == sig
+        if held:
+            _copy_into(graph.static, state)
+    if held:
         return graph, 0
-    _release(key)
-    frame, aux = make_frame()
-    graph = _GRAPHS[key] = _capture(state, frame, sig, aux)
+    with tracing.span("capture"):
+        _release(key)
+        frame, aux = make_frame()
+        graph = _GRAPHS[key] = _capture(state, frame, sig, aux)
     return graph, 1
 
 
