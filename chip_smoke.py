@@ -1030,15 +1030,18 @@ _FRAMES: dict = {}
 # device's own pace (``device_only`` says whether the host did finish)
 PROFILE_SLEEP_CYCLES = 20_000_000
 # the CUDA kernels of ``phyx_tpu_torch/csrc`` (K1, K3 and K5 each launch
-# the pre-pass visit_levels over their visit map, then level_solve; K2,
-# K4, K6 and K7 one kernel each), and the kernel that marks one launch of
-# each wrapper: every name part must be in the kernel's name
+# the pre-pass visit_levels over their visit map with free rows, its last
+# template argument true, then level_solve, then the two of the rerun over
+# the full graph, which return at once unless the first set the fallback
+# flag; K2, K4, K6 and K7 one kernel each), and the kernel that marks one
+# launch of each wrapper: every name part must be in the kernel's name
 HAND_KERNELS = ("visit_levels", "level_solve", "contact_solve_fused",
                 "tiled_onepass", "chunked_onepass", "warp_sweep")
-LAUNCH_MARKS = dict(K1=("visit_levels", "RowsMap"),
+LAUNCH_MARKS = dict(K1=("visit_levels", "RowsMap", "true>("),
                     K2=("contact_solve_fused",),
-                    K3=("visit_levels", "CumSlots"), K4=("tiled_onepass",),
-                    K5=("visit_levels", "BudgetSlots"),
+                    K3=("visit_levels", "CumSlots", "true>("),
+                    K4=("tiled_onepass",),
+                    K5=("visit_levels", "BudgetSlots", "true>("),
                     K6=("chunked_onepass",), K7=("warp_sweep",))
 
 
@@ -1897,15 +1900,16 @@ def _level_widths(lv: dict) -> dict:
 
 def _k1_levels(args, what: str) -> dict:
     """K1's level schedule at a frame: the kernel's pre-pass against
-    ``visit_levels`` (``_check_prepass``), with its last-level array as the
-    wrapper places it and in device memory, the levels per pass and their
-    widths, the pre-pass timed alone (CUDA events over repeated launches).
-    Not a launch of K1's wrapper."""
-    from phyx_tpu_torch.kernels.contact_solver_streamed import (prepass,
-                                                                 visit_levels)
+    ``visit_levels`` with the table's free rows (``_check_prepass``), with
+    its last-level array as the wrapper places it and in device memory, the
+    levels per pass and their widths, the pre-pass timed alone (CUDA events
+    over repeated launches).  Not a launch of K1's wrapper."""
+    from phyx_tpu_torch.kernels.contact_solver_streamed import (
+        free_rows, prepass, visit_levels)
     n = args["body_flat"].numel() // 8
     lv = visit_levels(args["b1"], args["b2"], args["num_contacts"],
-                      args["num_joints"], args["c_cap"], n)
+                      args["num_joints"], args["c_cap"], n,
+                      free_rows(args["body_flat"]))
     # the wrapper's placement of the last-level array, then device memory
     for smem_last in (None, False):
         dev = prepass(**args, smem_last=smem_last)
@@ -1995,14 +1999,15 @@ def _k1_in_device_memory(args, what: str) -> dict:
 
 def _tiled_levels(name: str, args, what: str) -> dict:
     """K3's or K5's level schedule at a frame: the kernel's pre-pass
-    against ``slab_levels`` (``_check_prepass``), its last-level array in
-    shared memory where the table's rows allow and in device memory, the
-    levels a pass and their widths, the pre-pass timed alone.  Not a launch
-    of the wrapper."""
-    from phyx_tpu_torch.kernels.contact_solver_streamed import placement
+    against ``slab_levels`` with the table's free rows (``_check_prepass``),
+    its last-level array in shared memory where the table's rows allow and
+    in device memory, the levels a pass and their widths, the pre-pass
+    timed alone.  Not a launch of the wrapper."""
+    from phyx_tpu_torch.kernels.contact_solver_streamed import (free_rows,
+                                                                placement)
     from phyx_tpu_torch.kernels.contact_solver_tiled import (slab_levels,
                                                              tiled_prepass)
-    lv = slab_levels(args)
+    lv = slab_levels(args, free_rows(args["body_flat"]))
     npad = args["body_flat"].numel() // 8
     for smem_last in {placement(npad)["smem_last"], False}:
         dev = tiled_prepass(args, smem_last=smem_last)

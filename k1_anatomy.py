@@ -21,7 +21,10 @@ inputs there, and times on CUDA events, in turns within the run:
 * the split of a level: ``no_visit`` (each record and its accumulators
   loaded, the visit's body reads, arithmetic and writes left out),
   ``no_barrier`` (no barrier after a level), and both.  These do not
-  compute the solve and are not checked.
+  compute the solve and are not checked;
+* the levels a pass with the table's free rows (the kernel's schedule:
+  the pile's ground is one) and with every row a node, the visits with a
+  free endpoint, and the kernel's counters.
 
 The variants are the source with one stated text of ``levels.cuh``
 replaced, each written with its headers and compiled under
@@ -53,14 +56,15 @@ NO_AHEAD = '''  for (int l = 0; l < n_levels; ++l) {
     for (int p = loff[l] + t; p < loff[l + 1]; p += blockDim.x) {
       Item it;
       load_item(it, rec4, acc4, p);
-      r = phyx::max_p(r, visit<kKind, kJoints, kSmem>(it, cols, body, acc4,
-                                                      p));
+      r = phyx::max_p(r, visit<kKind, kJoints, kSmem, true>(
+                             it, cols, body, acc4, p, &bad));
     }
     __syncthreads();
   }
 '''
 # the start of a visit's body: the visit left out, its loads kept live
-VISIT = '''                                       float* body, float4* acc4, int pos) {
+VISIT = '''                                       float* body, float4* acc4, int pos,
+                                       unsigned* bad = nullptr) {
 '''
 NO_VISIT = VISIT + '''  if (pos >= 0) {
     float s = it.a.x + it.a.y + it.a.z + it.a.w;
@@ -139,16 +143,16 @@ def solver(lib, smem_cols: bool):
         body_out = body_flat.clone()
         acc = torch.zeros((r * 4,), dtype=torch.float32, device=device)
         res = torch.empty((1,), dtype=torch.float32, device=device)
-        iscratch, fscratch = k1._scratch(n, r, device)
+        iscratch, fscratch, stats = k1._scratch(n, r, device)
         err = lib.phyx_contact_solve_streamed(
-            body_out.data_ptr(), b1.data_ptr(), b2.data_ptr(),
-            con_flat.data_ptr(), warm_flat.data_ptr(), acc.data_ptr(),
-            res.data_ptr(), num_contacts.data_ptr(),
+            body_out.data_ptr(), body_flat.data_ptr(), b1.data_ptr(),
+            b2.data_ptr(), con_flat.data_ptr(), warm_flat.data_ptr(),
+            acc.data_ptr(), res.data_ptr(), num_contacts.data_ptr(),
             None if num_joints is None else num_joints.data_ptr(),
-            tols.data_ptr(), n, c_cap, r - c_cap, int(vel_iters),
-            int(pos_iters), iscratch.data_ptr(), fscratch.data_ptr(),
-            int(k1.placement(n)["smem_last"]), int(smem_cols),
-            torch.cuda.current_stream().cuda_stream)
+            tols.data_ptr(), stats.data_ptr(), n, c_cap, r - c_cap,
+            int(vel_iters), int(pos_iters), iscratch.data_ptr(),
+            fscratch.data_ptr(), int(k1.placement(n)["smem_last"]),
+            int(smem_cols), torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"K1 variant launch failed: CUDA error {err}")
         return body_out, acc, res
@@ -172,7 +176,7 @@ def settled_frames() -> dict:
 def measure(args, libs) -> dict:
     from phyx_tpu_torch.kernels import contact_solver_streamed as k1
     from phyx_tpu_torch.kernels.contact_solver_streamed import (
-        prepass, solve_contacts_streamed, visit_levels)
+        COUNTERS, free_rows, prepass, solve_contacts_streamed, visit_levels)
     n = args["body_flat"].numel() // 8
     fits = k1.placement(n)["smem_cols"]
     runs = {
@@ -191,6 +195,7 @@ def measure(args, libs) -> dict:
         "no_visit_no_barrier": solver(libs["no_visit_no_barrier"], fits),
     }
     ref = solve_contacts_streamed(**args)
+    counters = dict(zip(COUNTERS, solve_contacts_streamed.stats.tolist()))
     checked = ("step4_cols_in_device_memory", "step4_in_device_memory",
                "step3", "step2", "step4_threads128", "step4_threads256")
     for name in checked:
@@ -201,13 +206,17 @@ def measure(args, libs) -> dict:
         for name, fn in runs.items():
             times[name].append(chip_smoke._kernel_ms(fn, args, reps=5))
     ms = {name: statistics.median(t) for name, t in times.items()}
-    lv = visit_levels(args["b1"], args["b2"], args["num_contacts"],
-                      args["num_joints"], args["c_cap"], n)
+    free = free_rows(args["body_flat"])
+    lv, full = (visit_levels(args["b1"], args["b2"], args["num_contacts"],
+                             args["num_joints"], args["c_cap"], n, f)
+                for f in (free, None))
     level_visits = lv["n_levels"] * (1 + args["vel_iters"]
                                      + args["pos_iters"])
     return dict(
         bodies=n, visits=lv["slots"].numel(), levels=lv["n_levels"],
-        passes=1 + args["vel_iters"] + args["pos_iters"],
+        levels_every_row_a_node=full["n_levels"], free_rows=int(free.sum()),
+        freed_visits=int((free[lv["i"]] | free[lv["j"]]).sum()),
+        counters=counters, passes=1 + args["vel_iters"] + args["pos_iters"],
         cols_in_shared_memory=fits, ms=ms,
         ns_per_level={name: (t - ms["prepass"]) * 1e6 / level_visits
                       for name, t in ms.items()

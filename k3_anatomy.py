@@ -1,13 +1,15 @@
 """Where the tiled solves' time goes, on the card: K3 at the settled 20k
-pile, 128-env and 1024-env frames, K5 at the 20k frame's routed rows, in
-every placement of their per-row arrays and under a variant of the level
-solve's record loads.
+pile, 128-env and 1024-env frames and at the 20k avalanche's frame 360, K5
+at the 20k frame's routed rows, in every placement of their per-row arrays
+and under a variant of the level solve's record loads.
 
 K3 and K5 (``phyx_tpu_torch/csrc/contact_solver_tiled.cu``, their level
 schedule in ``csrc/levels.cuh``) run a pre-pass that levels the slab
 walk's visits, then the passes level by level.  This script settles the
 frames as ``chip_smoke.py`` does (the 20k pile, bench.py's 300 frames;
-bench row E at 128 and at 1024 envs x 256 boxes, 240 frames each), takes
+bench row E at 128 and at 1024 envs x 256 boxes, 240 frames each; the 20k
+avalanche's autotuned settle of 300 frames, then 60 more, a frame of the
+benchmark's window), takes
 the kernels' inputs there and times on CUDA events, in turns within the
 run (median of three rounds):
 
@@ -19,10 +21,11 @@ run (median of three rounds):
 * ``stream_records``: the source with the level solve's record loads made
   streaming loads (``__ldcs``, evicted from L2 first), in the wrapper's
   placement;
-* the depth the all-zero rows set (the slabs' zero blocks, where statics
-  at rest are remapped, and zero padding): the levels a pass would have
-  if those rows were not nodes of the graph (torch's ``levels_of`` with a
-  fresh row for each of their visits; no kernel runs this schedule).
+* the depth the free rows take off (all +0.0: the slabs' zero blocks,
+  where statics at rest are remapped, the halo and padding): the levels a
+  pass with them (the kernels' schedule) and with every row a node
+  (torch's ``levels_of``), the visits with a free endpoint, and the
+  kernel's counters (the fallback among them).
 
 Every solve is held equal to the bit to the wrapper's result on all
 passes (the run raises otherwise).  The variant is the source with one
@@ -91,11 +94,16 @@ def settled_frames() -> dict:
     waits."""
     from phyx_tpu_torch.demos.run_envs import build_envs
     from phyx_tpu_torch.step import rollout, solve_inputs
+    from phyx_tpu_torch.tune import rollout_autotuned
     cfg, st = chip_smoke._bench_row("pile", 20_000)
     st = rollout(st, cfg, 300)
     frames = {"pile20k": ("K3", solve_inputs(st, cfg)),
               "pile20k_routed": ("K5", solve_inputs(
                   st, cfg.replace(tiled_routing=False)))}
+    cfg, st = chip_smoke._bench_row("avalanche", 20_000)
+    st, cfg = rollout_autotuned(st, cfg, 300, chunk=10)
+    frames["avalanche20k_frame360"] = ("K3", solve_inputs(
+        rollout(st, cfg, 60), cfg))
     for envs in (128, 1024):
         cfg, st = build_envs(envs, 256)
         st = rollout(st, cfg, 240)
@@ -105,6 +113,8 @@ def settled_frames() -> dict:
 
 
 def measure(name: str, args, libs: dict) -> dict:
+    from phyx_tpu_torch.kernels.contact_solver_streamed import (COUNTERS,
+                                                                free_rows)
     from phyx_tpu_torch.kernels.contact_solver_tiled import (
         _launch, slab_levels, tiled_placements, tiled_prepass)
     npad = args["body_flat"].numel() // 8
@@ -121,7 +131,9 @@ def measure(name: str, args, libs: dict) -> dict:
     solves = {key(p): solver(p) for p in places}
     solves.update({f"{v}_{key(places[0])}": solver(places[0], lib)
                    for v, lib in libs.items()})
-    ref = chip_smoke._wrappers()[name](**args)
+    wrapper = chip_smoke._wrappers()[name]
+    ref = wrapper(**args)
+    counters = dict(zip(COUNTERS, wrapper.stats.tolist()))
     for k, fn in solves.items():
         chip_smoke._equal(f"{name} {k} vs the wrapper", fn(**args), ref)
     runs.update(solves)
@@ -130,35 +142,21 @@ def measure(name: str, args, libs: dict) -> dict:
         for k, fn in runs.items():
             times[k].append(chip_smoke._kernel_ms(fn, args, reps=3))
     ms = {k: statistics.median(t) for k, t in times.items()}
-    lv = slab_levels(args)
+    free = free_rows(args["body_flat"])
+    lv = slab_levels(args, free)
     passes = 1 + args["vel_iters"] + args["pos_iters"]
     level_visits = max(1, passes * lv["n_levels"])
     ns = {k: (ms[k] - ms["prepass_shared_last" if "shared_last" in k
                          else "prepass_device_last"]) * 1e6 / level_visits
           for k in solves}
     return dict(kernel=name, rows=npad, visits=lv["slots"].numel(),
-                levels=lv["n_levels"], passes=passes,
-                **zero_rows(args, lv),
+                levels=lv["n_levels"],
+                levels_every_row_a_node=slab_levels(args)["n_levels"],
+                free_rows=int(free.sum()),
+                freed_visits=int((free[lv["i"]] | free[lv["j"]]).sum()),
+                counters=counters, passes=passes,
                 wrapper_placement=places[0], ms=ms, ns_per_level=ns,
                 checked_equal=list(solves))
-
-
-def zero_rows(args, lv) -> dict:
-    """The all-zero rows of the table (every column +0.0: the zero blocks
-    and padding), the visits that touch one, and the levels a pass would
-    have if each such visit had a fresh row instead."""
-    import torch
-    from phyx_tpu_torch.kernels.contact_solver_streamed import levels_of
-    table = args["body_flat"].view(-1, 8).view(torch.int32)
-    zero = (table == 0).all(dim=1)
-    i, j = lv["i"], lv["j"]
-    v = i.numel()
-    fresh = table.shape[0] + torch.arange(2 * v, device=i.device)
-    i2 = torch.where(zero[i], fresh[:v], i)
-    j2 = torch.where(zero[j], fresh[v:], j)
-    return dict(zero_rows=int(zero.sum()),
-                visits_on_zero_rows=int((zero[i] | zero[j]).sum()),
-                levels_if_zero_rows_free=levels_of(i2, j2)["n_levels"])
 
 
 def main() -> int:

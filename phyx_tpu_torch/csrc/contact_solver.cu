@@ -452,9 +452,10 @@ __global__ void __launch_bounds__(kThreads) contact_solve_fused(
     s_stop = 0;
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  phyx::levels::prepass(map, body_in, n_cap, nullptr,
-                        reinterpret_cast<int*>(ring), lvl, cursor, loff,
-                        &s_nlev, slot_s, rec, acc_s);
+  phyx::levels::prepass<false>(map, body_in, n_cap, nullptr,
+                               reinterpret_cast<int*>(ring), nullptr, lvl,
+                               cursor, loff, &s_nlev, slot_s, rec, acc_s,
+                               nullptr);
   // the records (and the last-level array in the ring's place) were
   // written by the generic proxy; the bulk copies read and write through
   // the async proxy

@@ -22,9 +22,11 @@
 // them into records, then one block runs each pass level by level.  The
 // visit map (RowsMap, levels.cuh, shared with K2) walks the contact rows
 // [0, num), then the joint rows [c_cap, c_cap + numj), the ids clamped
-// into [0, N) as the plain version clamps them.  Measured depth (chip_smoke.py on an H100): the settled 10k
-// pile frame has 1,160 levels a pass for 39,280 visits, the 64-env frame
-// 123 for 50,745 (its envs run side by side).
+// into [0, N) as the plain version clamps them.  The pile's ground, a
+// static at rest, is a free row (levels.cuh): its contacts order nothing.
+// Measured depth (chip_smoke.py on an H100), every row a node: the settled
+// 10k pile frame has 1,160 levels a pass for 39,280 visits, the 64-env
+// frame 123 for 50,745 (its envs run side by side).
 
 #include <cuda_runtime.h>
 
@@ -35,62 +37,61 @@ namespace {
 using phyx::levels::RowsMap;
 using phyx::levels::Scratch;
 
-cudaError_t launch_levels(const void* b1, const void* b2, const void* con,
-                          const void* warm, const void* body, const void* num,
-                          const void* num_joints, int n_cap, int c_cap,
-                          int j_cap, bool in_smem, const Scratch& s,
-                          cudaStream_t stream) {
-  const RowsMap map{static_cast<const int*>(b1),
-                    static_cast<const int*>(b2),
-                    static_cast<const float*>(con),
-                    static_cast<const float*>(warm),
-                    static_cast<const int*>(num),
-                    static_cast<const int*>(num_joints),
-                    n_cap, c_cap, j_cap, 0};
-  return phyx::levels::launch_levels(map, static_cast<const float*>(body),
-                                     n_cap, in_smem, s, stream);
+RowsMap rows_map(const void* b1, const void* b2, const void* con,
+                 const void* warm, const void* num, const void* num_joints,
+                 int n_cap, int c_cap, int j_cap) {
+  return RowsMap{static_cast<const int*>(b1),
+                 static_cast<const int*>(b2),
+                 static_cast<const float*>(con),
+                 static_cast<const float*>(warm),
+                 static_cast<const int*>(num),
+                 static_cast<const int*>(num_joints),
+                 n_cap, c_cap, j_cap, 0};
 }
 
 }  // namespace
 
 // Plain C entries for ctypes: each launches on `stream` and returns the
 // first CUDA error (0 = launched).  Pointers are device pointers;
-// num_joints may be null (no joint rows); iscratch holds 4 R + N + 2 ints
-// and fscratch 24 R floats (carve).  smem_last puts the pre-pass's
-// last-level array (4 N bytes) in shared memory, smem_cols the level
-// solve's working columns (12 N bytes): the caller decides from N what
-// fits.
+// num_joints may be null (no joint rows); iscratch holds 4 R + N + 4 ints
+// and fscratch 24 R floats (carve); stats 4 ints, the call's counters
+// (levels.cuh: levels a pass, visits, visits with a free endpoint,
+// fallback fired).  smem_last puts the pre-pass's last-level array
+// (4 N bytes) in shared memory, smem_cols the level solve's working
+// columns (12 N bytes): the caller decides from N what fits.
 
-// The pre-pass alone (for timing it, and for checking the levels).
+// The pre-pass alone, free rows no nodes (for timing it, and for checking
+// the levels).
 extern "C" int phyx_visit_levels(const void* b1, const void* b2,
                                  const void* con, const void* warm,
                                  const void* body, const void* num,
-                                 const void* num_joints, int n_cap,
-                                 int c_cap, int j_cap, void* iscratch,
-                                 void* fscratch, int smem_last,
-                                 void* stream) {
+                                 const void* num_joints, void* stats,
+                                 int n_cap, int c_cap, int j_cap,
+                                 void* iscratch, void* fscratch,
+                                 int smem_last, void* stream) {
   const Scratch s = phyx::levels::carve(iscratch, fscratch, c_cap + j_cap);
-  return static_cast<int>(launch_levels(b1, b2, con, warm, body, num,
-                                        num_joints, n_cap, c_cap, j_cap,
-                                        smem_last != 0, s,
-                                        static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(phyx::levels::launch_levels(
+      rows_map(b1, b2, con, warm, num, num_joints, n_cap, c_cap, j_cap),
+      const_cast<float*>(static_cast<const float*>(body)), nullptr, n_cap,
+      smem_last != 0, true, nullptr, static_cast<int*>(stats), s,
+      static_cast<cudaStream_t>(stream)));
 }
 
-// The whole solve: the pre-pass, then the level solve, on body (N*8,
-// in/out).
+// The whole solve (levels.cuh launch_whole) on body (N*8, in/out), whose
+// input body0 is left as it is (the rerun's copy).
 extern "C" int phyx_contact_solve_streamed(
-    void* body, const void* b1, const void* b2, const void* con,
-    const void* warm, void* acc, void* res, const void* num,
-    const void* num_joints, const void* tols, int n_cap, int c_cap,
-    int j_cap, int vel_iters, int pos_iters, void* iscratch, void* fscratch,
-    int smem_last, int smem_cols, void* stream) {
-  const auto st = static_cast<cudaStream_t>(stream);
+    void* body, const void* body0, const void* b1, const void* b2,
+    const void* con, const void* warm, void* acc, void* res, const void* num,
+    const void* num_joints, const void* tols, void* stats, int n_cap,
+    int c_cap, int j_cap, int vel_iters, int pos_iters, void* iscratch,
+    void* fscratch, int smem_last, int smem_cols, void* stream) {
   const Scratch s = phyx::levels::carve(iscratch, fscratch, c_cap + j_cap);
-  cudaError_t err = launch_levels(b1, b2, con, warm, body, num, num_joints,
-                                  n_cap, c_cap, j_cap, smem_last != 0, s, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(phyx::levels::launch_solve(
-      num_joints != nullptr, smem_cols != 0, static_cast<float*>(body), s,
-      static_cast<float*>(acc), static_cast<const float*>(tols),
-      static_cast<float*>(res), n_cap, vel_iters, pos_iters, st));
+  return static_cast<int>(phyx::levels::launch_whole(
+      rows_map(b1, b2, con, warm, num, num_joints, n_cap, c_cap, j_cap),
+      num_joints != nullptr, static_cast<float*>(body),
+      static_cast<const float*>(body0), n_cap, smem_last != 0,
+      smem_cols != 0, static_cast<float*>(acc),
+      static_cast<const float*>(tols), static_cast<float*>(res),
+      static_cast<int*>(stats), vel_iters, pos_iters, s,
+      static_cast<cudaStream_t>(stream)));
 }

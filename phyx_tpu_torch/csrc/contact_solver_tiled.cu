@@ -43,9 +43,13 @@
 // level the chain is the levels (a pass's depth, not its visits) plus the
 // serial pre-pass over the walked slots.  K3 walks the slots of live pairs: the
 // SAT-dead slots inside them are visited as no-ops (zero masses and warm
-// impulses) and stay nodes of the graph, since a no-op can still flip the sign
-// of a written zero.  Placement (the wrapper decides from the table's rows as
-// K1 does from its bodies, kernels/contact_solver_streamed.py placement): the
+// impulses) and stay visits, since a no-op can still flip the sign of a
+// written zero.  Each slab's zero block (where statics at rest are remapped),
+// the halo and the padding are free rows (levels.cuh): while every write to
+// them is +0.0 they are no nodes, so a slab's contacts with the ground and
+// the slope are not one chain through its zero row.  Placement (the wrapper
+// decides from the table's rows as K1 does from its bodies,
+// kernels/contact_solver_streamed.py placement): the
 // last-level array (4 npad bytes) in shared memory up to 51,200 rows (the 20k
 // pile's table), else in device memory; the working columns (12 npad bytes) in
 // shared memory where they fit one block (small tables), else in device memory,
@@ -162,55 +166,64 @@ SlabMap<Segments> slab_map(const void* b12, const void* cw, Segments segs,
                            nullptr};
 }
 
-// the pre-pass, then (solve) the level solve, on body (npad*8, in/out)
+// the whole solve (levels.cuh launch_whole) on body (npad*8, in/out; body0
+// its input), or (solve false) the pre-pass alone, free rows no nodes
 template <class Segments>
-int run(const SlabMap<Segments>& map, bool joints, void* body, void* acc,
-        void* res, const void* tols, int npad, int s_cap, int vel_iters,
-        int pos_iters, void* iscratch, void* fscratch, int smem_last,
-        int smem_cols, bool solve, void* stream) {
+int run(const SlabMap<Segments>& map, bool joints, void* body,
+        const void* body0, void* acc, void* res, const void* tols,
+        void* stats, int npad, int s_cap, int vel_iters, int pos_iters,
+        void* iscratch, void* fscratch, int smem_last, int smem_cols,
+        bool solve, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   const Scratch s = phyx::levels::carve(iscratch, fscratch, s_cap);
-  cudaError_t err = phyx::levels::launch_levels(
-      map, static_cast<const float*>(body), npad, smem_last != 0, s, st);
-  if (err != cudaSuccess || !solve) return static_cast<int>(err);
-  return static_cast<int>(phyx::levels::launch_solve(
-      joints, smem_cols != 0, static_cast<float*>(body), s,
-      static_cast<float*>(acc), static_cast<const float*>(tols),
-      static_cast<float*>(res), npad, vel_iters, pos_iters, st));
+  if (!solve)
+    return static_cast<int>(phyx::levels::launch_levels(
+        map, static_cast<float*>(body), nullptr, npad, smem_last != 0, true,
+        nullptr, static_cast<int*>(stats), s, st));
+  return static_cast<int>(phyx::levels::launch_whole(
+      map, joints, static_cast<float*>(body),
+      static_cast<const float*>(body0), npad, smem_last != 0,
+      smem_cols != 0, static_cast<float*>(acc),
+      static_cast<const float*>(tols), static_cast<float*>(res),
+      static_cast<int*>(stats), vel_iters, pos_iters, s, st));
 }
 
 }  // namespace
 
 // Plain C entries for ctypes: each launches on `stream` and returns the
 // first CUDA error (0 = launched).  Pointers are device pointers; npad is
-// the table's rows, s_cap its slots; iscratch holds 4 s_cap + npad + 2 ints
-// and fscratch 24 s_cap floats (levels.cuh carve).  smem_last puts the
-// pre-pass's last-level array (4 npad bytes) in shared memory, smem_cols
-// the level solve's working columns (12 npad bytes): the caller decides
-// from npad what fits.  solve = 0 runs the pre-pass alone (for timing it,
-// and for checking the levels).
+// the table's rows, s_cap its slots; iscratch holds 4 s_cap + npad + 4 ints
+// and fscratch 24 s_cap floats (levels.cuh carve); stats 4 ints, the
+// call's counters (levels.cuh).  body0 is the solve's input table, left as
+// it is (the rerun's copy).  smem_last puts the pre-pass's last-level array
+// (4 npad bytes) in shared memory, smem_cols the level solve's working
+// columns (12 npad bytes): the caller decides from npad what fits.  solve
+// = 0 runs the pre-pass alone (for timing it, and for checking the
+// levels).
 
 extern "C" int phyx_contact_solve_tiled2(
-    void* body, const void* b12, const void* cw, void* acc, void* res,
-    const void* cum, const void* tols, int stride, int window, int n_slabs,
-    int s_cap, int vel_iters, int pos_iters, int npad, void* iscratch,
-    void* fscratch, int smem_last, int smem_cols, int solve, void* stream) {
+    void* body, const void* body0, const void* b12, const void* cw,
+    void* acc, void* res, const void* cum, const void* tols, void* stats,
+    int stride, int window, int n_slabs, int s_cap, int vel_iters,
+    int pos_iters, int npad, void* iscratch, void* fscratch, int smem_last,
+    int smem_cols, int solve, void* stream) {
   return run(slab_map(b12, cw, CumSlots{static_cast<const int*>(cum), s_cap},
                       n_slabs, stride, window),
-             false, body, acc, res, tols, npad, s_cap, vel_iters, pos_iters,
-             iscratch, fscratch, smem_last, smem_cols, solve != 0, stream);
+             false, body, body0, acc, res, tols, stats, npad, s_cap,
+             vel_iters, pos_iters, iscratch, fscratch, smem_last, smem_cols,
+             solve != 0, stream);
 }
 
 extern "C" int phyx_contact_solve_tiled(
-    void* body, const void* b12, const void* cw, void* acc, void* res,
-    const void* counts, const void* tols, int stride, int window,
-    int n_slabs, int c_slots, int j_slots, int vel_iters, int pos_iters,
-    int npad, void* iscratch, void* fscratch, int smem_last, int smem_cols,
-    int solve, void* stream) {
+    void* body, const void* body0, const void* b12, const void* cw,
+    void* acc, void* res, const void* counts, const void* tols, void* stats,
+    int stride, int window, int n_slabs, int c_slots, int j_slots,
+    int vel_iters, int pos_iters, int npad, void* iscratch, void* fscratch,
+    int smem_last, int smem_cols, int solve, void* stream) {
   const BudgetSlots segs{static_cast<const int*>(counts), n_slabs, c_slots,
                          j_slots};
   return run(slab_map(b12, cw, segs, n_slabs, stride, window), j_slots > 0,
-             body, acc, res, tols, npad, n_slabs * (c_slots + j_slots),
-             vel_iters, pos_iters, iscratch, fscratch, smem_last, smem_cols,
-             solve != 0, stream);
+             body, body0, acc, res, tols, stats, npad,
+             n_slabs * (c_slots + j_slots), vel_iters, pos_iters, iscratch,
+             fscratch, smem_last, smem_cols, solve != 0, stream);
 }

@@ -284,4 +284,4 @@ def solve_contacts_fused_levels_plain(
     return levels_walk(body_flat.reshape(n, 8), con_flat.reshape(r, 12),
                        warm_flat.reshape(r, 2),
                        dict(lv, level=step_of, n_levels=len(steps)),
-                       lv["slots"] >= c_cap, vel_iters, pos_iters, tols)
+                       lv["slots"] >= c_cap, vel_iters, pos_iters, tols)[:3]

@@ -26,8 +26,9 @@ with ``nvcc`` at first use (``kernels/nvcc.py``) and called through
   the tiled kernels (``kernels/contact_solver_tiled.py``), which visit in
   another order.
 * ``solve_contacts_levels_plain`` is a second plain version: the same solve
-  level by level, one vectorised torch operation per scalar operation.  It
-  equals the first to the bit.
+  level by level, one vectorised torch operation per scalar operation, with
+  the kernels' free rows (``free_rows``, ``freed_walk``).  It equals the
+  first to the bit.
 
 Layout (flat, as in the reference): body rows ``(N*8,)`` f32 of
 ``[vx, vy, w, inv_mass, inv_inertia, dvx, dvy, dw]``; plain body ids
@@ -47,6 +48,14 @@ Gates: from the second velocity pass on, a pass is skipped once the
 previous executed pass's residual is below ``tols[0]``; displacement
 passes likewise with their own residual and ``tols[1]``.  A threshold of
 0.0 never fires; ``tols=None`` is ungated.
+
+Free rows (``csrc/levels.cuh``): a body row whose 8 columns are all +0.0
+bits (a static at rest, such as the pile's ground) is no node of the level
+graph while every write to it is +0.0, which holds while every product
+written to it is finite; the level solve computes those writes, checks
+them and stores none, and where one is not +0.0 the solve runs again over
+the full graph from its input.  Each call's counters stay on the device
+(``COUNTERS``), the latest call's at ``solve_contacts_streamed.stats``.
 """
 
 from __future__ import annotations
@@ -66,6 +75,10 @@ SOURCE = nvcc.CSRC / "contact_solver_streamed.cu"
 SMEM_COLS_MAX = 232_448 - 1_024
 # the pre-pass's last-level array, 4 N bytes: N <= 51,200
 SMEM_LAST_MAX = 200 * 1_024
+# a solve's counters, in the order of its stats tensor (csrc/levels.cuh):
+# levels a pass, visits a pass, visits with a free endpoint, and whether
+# the rerun over the full graph ran (0 or 1)
+COUNTERS = ("levels", "visits", "freed_visits", "fallbacks")
 
 
 def placement(n: int) -> dict:
@@ -81,12 +94,12 @@ def build() -> tuple:
     (ctypes library, nvcc's report or "" when the build was cached)."""
     lib, report = nvcc.load(SOURCE)
     fn = lib.phyx_contact_solve_streamed
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     fn = lib.phyx_visit_levels
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p] * 2 + [ctypes.c_int]
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -94,11 +107,13 @@ def build() -> tuple:
 
 
 def _scratch(n: int, r: int, device) -> tuple:
-    """The kernel's scratch: 4 R + N + 2 int32 (levels, level offsets,
-    cursors, row slots, per-body last levels) and 24 R f32 (the records
-    and accumulators in level order)."""
-    return (torch.empty((4 * r + n + 2,), dtype=torch.int32, device=device),
-            torch.empty((24 * r,), dtype=torch.float32, device=device))
+    """The kernel's scratch: 4 R + N + 4 int32 (levels, level offsets,
+    cursors, row slots, per-body last levels and the walk's zero and sink
+    slots), 24 R f32 (the records and accumulators in level order) and the
+    call's counters (``COUNTERS``, int32, written by the kernel)."""
+    return (torch.empty((4 * r + n + 4,), dtype=torch.int32, device=device),
+            torch.empty((24 * r,), dtype=torch.float32, device=device),
+            torch.empty((len(COUNTERS),), dtype=torch.int32, device=device))
 
 
 def _check(name, t, dtype, shape, device):
@@ -159,7 +174,9 @@ def solve_contacts_streamed(
 ):
     """Returns (body_flat', acc (R*4,), residual (1,)) — see the module
     docstring.  CUDA tensors launch the kernel; CPU tensors take the plain
-    version.  ``solve_contacts_streamed.launches`` counts kernel launches."""
+    version.  ``solve_contacts_streamed.launches`` counts kernel launches,
+    ``solve_contacts_streamed.stats`` holds the latest launch's counters
+    (``COUNTERS``, on the device)."""
     args = (body_flat, b1, b2, con_flat, warm_flat, num_contacts, vel_iters,
             pos_iters, num_joints, c_cap)
     n, r, c_cap, tols = check_inputs(*args, tols)
@@ -169,12 +186,14 @@ def solve_contacts_streamed(
     if device.type != "cuda":
         raise NotImplementedError(f"no solve kernel for {device.type}")
 
-    out = _launch(*args[:9], c_cap, tols, **placement(n))
+    *out, solve_contacts_streamed.stats = _launch(*args[:9], c_cap, tols,
+                                                  **placement(n))
     count_launch(solve_contacts_streamed)
-    return out
+    return tuple(out)
 
 
 solve_contacts_streamed.launches = 0
+solve_contacts_streamed.stats = None
 
 
 def _launch(body_flat, b1, b2, con_flat, warm_flat, num_contacts, vel_iters,
@@ -183,7 +202,8 @@ def _launch(body_flat, b1, b2, con_flat, warm_flat, num_contacts, vel_iters,
     """Launches the kernel on checked CUDA inputs with its per-body arrays
     placed as given.  The wrapper places them by ``placement``; a check on
     the card also runs the placements in device memory at shapes where
-    they would fit shared memory.  Not counted in the launches."""
+    they would fit shared memory.  Not counted in the launches.  Returns
+    (body', acc, residual, the call's counters)."""
     n = body_flat.numel() // 8
     r = b1.numel()
     device = body_flat.device
@@ -191,21 +211,21 @@ def _launch(body_flat, b1, b2, con_flat, warm_flat, num_contacts, vel_iters,
     body_out = body_flat.clone()
     acc = torch.zeros((r * 4,), dtype=torch.float32, device=device)
     res = torch.empty((1,), dtype=torch.float32, device=device)
-    iscratch, fscratch = _scratch(n, r, device)
+    iscratch, fscratch, stats = _scratch(n, r, device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.phyx_contact_solve_streamed(
-            body_out.data_ptr(), b1.data_ptr(), b2.data_ptr(),
-            con_flat.data_ptr(), warm_flat.data_ptr(), acc.data_ptr(),
-            res.data_ptr(), num_contacts.data_ptr(),
+            body_out.data_ptr(), body_flat.data_ptr(), b1.data_ptr(),
+            b2.data_ptr(), con_flat.data_ptr(), warm_flat.data_ptr(),
+            acc.data_ptr(), res.data_ptr(), num_contacts.data_ptr(),
             None if num_joints is None else num_joints.data_ptr(),
-            tols.data_ptr(), n, c_cap, r - c_cap, int(vel_iters),
-            int(pos_iters), iscratch.data_ptr(), fscratch.data_ptr(),
-            int(smem_last), int(smem_cols), stream)
+            tols.data_ptr(), stats.data_ptr(), n, c_cap, r - c_cap,
+            int(vel_iters), int(pos_iters), iscratch.data_ptr(),
+            fscratch.data_ptr(), int(smem_last), int(smem_cols), stream)
     if err != 0:
         raise RuntimeError(f"streamed solve kernel launch failed: CUDA "
                            f"error {err}")
-    return body_out, acc, res
+    return body_out, acc, res, stats
 
 
 def solve_in_device_memory(body_flat, b1, b2, con_flat, warm_flat,
@@ -222,21 +242,24 @@ def solve_in_device_memory(body_flat, b1, b2, con_flat, warm_flat,
     if body_flat.device.type != "cuda":
         raise ValueError("solve_in_device_memory launches the kernel: CUDA "
                          "tensors only")
-    return _launch(*args[:9], c_cap, tols, smem_last=False, smem_cols=False)
+    return _launch(*args[:9], c_cap, tols, smem_last=False,
+                   smem_cols=False)[:3]
 
 
 def prepass(body_flat, b1, b2, con_flat, warm_flat, num_contacts,
             num_joints=None, c_cap=None, smem_last=None, **_) -> dict:
-    """The kernel's pre-pass alone, on CUDA tensors (the solve's own
-    arguments; the passes are ignored): for timing it apart from the solve
-    and checking its levels against ``visit_levels``.  Not counted in
+    """The kernel's pre-pass alone (free rows no nodes), on CUDA tensors
+    (the solve's own arguments; the passes are ignored): for timing it
+    apart from the solve and checking its levels against ``visit_levels``
+    with ``free_rows(body_flat)``.  Not counted in
     ``solve_contacts_streamed.launches``.  Returns device tensors:
     ``level`` (R,) int32, each live visit's level in serial order (the
     first ``offsets[-1]`` entries), ``offsets`` (R + 1,) int32 (the first
     ``n_levels + 1`` entries), ``n_levels`` (1,) int32, ``slots`` (R,) int32
     the row slot of each record in level order (the order inside a level
-    is the scatter's).  ``smem_last`` overrides where the last-level array
-    sits (default: ``placement``)."""
+    is the scatter's), ``stats`` the counters (``COUNTERS``; no fallback is
+    run).  ``smem_last`` overrides where the last-level array sits
+    (default: ``placement``)."""
     n, r, c_cap, _ = check_inputs(body_flat, b1, b2, con_flat, warm_flat,
                                   num_contacts, 0, 0, num_joints, c_cap,
                                   None)
@@ -246,20 +269,27 @@ def prepass(body_flat, b1, b2, con_flat, warm_flat, num_contacts,
     if smem_last is None:
         smem_last = placement(n)["smem_last"]
     lib, _ = build()
-    iscratch, fscratch = _scratch(n, r, device)
+    iscratch, fscratch, stats = _scratch(n, r, device)
     with torch.cuda.device(device):
         err = lib.phyx_visit_levels(
             b1.data_ptr(), b2.data_ptr(), con_flat.data_ptr(),
             warm_flat.data_ptr(), body_flat.data_ptr(),
             num_contacts.data_ptr(),
-            None if num_joints is None else num_joints.data_ptr(), n, c_cap,
-            r - c_cap, iscratch.data_ptr(), fscratch.data_ptr(),
-            int(smem_last), torch.cuda.current_stream(device).cuda_stream)
+            None if num_joints is None else num_joints.data_ptr(),
+            stats.data_ptr(), n, c_cap, r - c_cap, iscratch.data_ptr(),
+            fscratch.data_ptr(), int(smem_last),
+            torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"level pre-pass launch failed: CUDA error {err}")
+    return scratch_levels(iscratch, r, stats)
+
+
+def scratch_levels(iscratch, r: int, stats) -> dict:
+    """The pre-pass's outputs in its int scratch (``_scratch``) for ``r``
+    row slots, with the call's counters (see ``prepass``)."""
     return dict(level=iscratch[:r], offsets=iscratch[2 * r:3 * r + 1],
                 n_levels=iscratch[3 * r + 1:3 * r + 2],
-                slots=iscratch[3 * r + 2:4 * r + 2])
+                slots=iscratch[3 * r + 2:4 * r + 2], stats=stats)
 
 
 def solve_contacts_streamed_plain(
@@ -509,13 +539,22 @@ def plain_walk(table, con_rows, warm_rows, visits, vel_iters: int,
     return table_out.reshape(-1), acc_out.reshape(-1), res.reshape(1)
 
 
-def visit_levels(b1, b2, num_contacts, num_joints, c_cap: int, n: int):
+def free_rows(table) -> torch.Tensor:
+    """The free rows of a body table ((rows * 8,) or (rows, 8) f32): those
+    whose 8 columns are all +0.0 bits (-0.0 is not), (rows,) bool."""
+    return (table.reshape(-1, 8).view(torch.int32) == 0).all(dim=1)
+
+
+def visit_levels(b1, b2, num_contacts, num_joints, c_cap: int, n: int,
+                 free=None):
     """The kernel's pre-pass as torch operations on the ids' device: the
     live visits in serial order (contact slots [0, num), then joint slots
     [c_cap, c_cap + numj)), ids clamped into [0, n) as the kernel clamps
-    them, and each visit's level (``levels_of``).  Returns a dict:
-    ``slots``, ``i``, ``j`` (visits,) int64 and ``levels_of``'s ``level``,
-    ``n_levels``, ``order``, ``offsets``."""
+    them, and each visit's level (``levels_of``; ``free``: the free rows,
+    as the kernel's pre-pass takes them from its table, or None for the
+    full graph).  Returns a dict: ``slots``, ``i``, ``j`` (visits,) int64,
+    ``free`` as given and ``levels_of``'s ``level``, ``n_levels``,
+    ``order``, ``offsets``."""
     device = b1.device
     r = b1.numel()
     num = min(max(int(num_contacts), 0), c_cap)
@@ -525,17 +564,21 @@ def visit_levels(b1, b2, num_contacts, num_joints, c_cap: int, n: int):
                        torch.arange(c_cap, c_cap + numj, device=device)])
     i = torch.clamp(b1[slots].long(), 0, n - 1)
     j = torch.clamp(b2[slots].long(), 0, n - 1)
-    return dict(slots=slots, i=i, j=j, **levels_of(i, j))
+    return dict(slots=slots, i=i, j=j, free=free, **levels_of(i, j, free))
 
 
-def levels_of(i, j) -> dict:
+def levels_of(i, j, free=None) -> dict:
     """The levels of visits in serial order whose body rows are ``i`` and
     ``j`` ((visits,) int64): ``level(k) = 1 + max(last[i], last[j])`` over
     the visits before it (``last[b]``: the level of the latest visit of
     row b, 0 before any).  Visits of one level touch disjoint rows, and two
     visits that share a row keep their serial order, so running the levels
     one after another, each level's visits in any order, repeats the serial
-    solve operation for operation.
+    solve operation for operation.  ``free`` ((rows,) bool, or None): rows
+    that are no nodes, as the kernels' pre-pass walks its free rows: a
+    free row adds 0 to a visit's level and its ``last`` never moves, so
+    visits of one level may share a free row (``freed_walk`` says when
+    that repeats the serial solve).
 
     Computed without the serial walk: each visit's predecessors are the
     previous visits of its two rows (a sort of the (row, visit)
@@ -552,6 +595,11 @@ def levels_of(i, j) -> dict:
     # the endpoint before it on the same row, unless that is the other
     # end of its own visit (a self pair), which adds no constraint
     body = torch.cat([i, j])
+    if free is not None:
+        # each endpoint on a free row a row of its own: no predecessor, and
+        # no successor
+        fresh = free.numel() + torch.arange(2 * v, device=device)
+        body = torch.where(free[body], fresh, body)
     owner = torch.cat([visit, visit])
     key = (body * v + owner) * 2 + torch.cat([torch.zeros_like(visit),
                                               torch.ones_like(visit)])
@@ -585,17 +633,35 @@ def solve_contacts_levels_plain(
     vel_iters: int, pos_iters: int, num_joints=None, c_cap=None, tols=None,
 ):
     """The second plain version: the solve of ``solve_contacts_streamed``
-    run level by level over ``visit_levels`` (``levels_walk``).  It equals
-    ``solve_contacts_streamed_plain`` to the bit (a NaN residual may carry
-    another payload).  It reads the counts and levels back to the host:
-    for tests and for comparison with the kernel."""
+    run level by level over ``visit_levels`` with the table's free rows
+    (``freed_walk``).  It equals ``solve_contacts_streamed_plain`` to the
+    bit (a NaN residual may carry another payload).  It reads the counts
+    and levels back to the host: for tests and for comparison with the
+    kernel."""
     n = body_flat.numel() // 8
     r = b1.numel()
     c_cap = r if c_cap is None else int(c_cap)
-    lv = visit_levels(b1, b2, num_contacts, num_joints, c_cap, n)
-    return levels_walk(body_flat.reshape(n, 8), con_flat.reshape(r, 12),
-                       warm_flat.reshape(r, 2), lv, lv["slots"] >= c_cap,
-                       vel_iters, pos_iters, tols)
+    lv = visit_levels(b1, b2, num_contacts, num_joints, c_cap, n,
+                      free_rows(body_flat))
+    return freed_walk(body_flat.reshape(n, 8), con_flat.reshape(r, 12),
+                      warm_flat.reshape(r, 2), lv, lv["slots"] >= c_cap,
+                      vel_iters, pos_iters, tols)[:3]
+
+
+def freed_walk(table, con_rows, warm_rows, lv, joint, vel_iters: int,
+               pos_iters: int, tols=None) -> tuple:
+    """The kernels' solve: ``levels_walk`` over ``lv``'s levels with its
+    free rows (``lv["free"]``, as ``levels_of`` took them), and where a
+    write to a free row is not +0.0, the fallback: ``levels_walk`` again
+    from ``table`` over the full graph (``levels_of`` with no free rows).
+    Returns (table' flat, acc, residual, fallback ran)."""
+    out = levels_walk(table, con_rows, warm_rows, lv, joint, vel_iters,
+                      pos_iters, tols)
+    if not bool(out[3]):
+        return out[:3] + (False,)
+    full = dict(lv, free=None, **levels_of(lv["i"], lv["j"]))
+    return levels_walk(table, con_rows, warm_rows, full, joint, vel_iters,
+                       pos_iters, tols)[:3] + (True,)
 
 
 def levels_walk(table, con_rows, warm_rows, lv, joint, vel_iters: int,
@@ -608,13 +674,21 @@ def levels_walk(table, con_rows, warm_rows, lv, joint, vel_iters: int,
     operation of the visit, in the visit's order.  Visits of one level
     touch disjoint rows, so this is the serial solve's arithmetic on the
     serial solve's operands: it equals ``plain_walk`` over the same visits
-    to the bit (a NaN residual may carry another payload).  Returns
-    (table' flat, acc (slots*4,) zero where not visited, residual (1,))."""
+    to the bit (a NaN residual may carry another payload).
+
+    Where ``lv["free"]`` is given (the free rows ``levels_of`` took), the
+    visits of a level may share a free row: its writes are computed as
+    before and not stored (the row keeps its +0.0, which every read
+    sees), and any whose bits are not +0.0 is flagged.  The result equals
+    ``plain_walk``'s where nothing was flagged (``freed_walk``).  Returns
+    (table' flat, acc (slots*4,) zero where not visited, residual (1,),
+    flagged: a () bool tensor)."""
     device = table.device
     r = con_rows.shape[0]
     if tols is None:
         tols = torch.zeros((2,), dtype=torch.float32, device=device)
     vtol, ptol = tols.unbind()
+    free = lv.get("free")
     # kind per visit: 0 contact, 1 revolute joint, 2 distance joint
     kind = torch.where(~joint, 0,
                        torch.where(con_rows[lv["slots"], 11] == 1.0, 1, 2))
@@ -634,7 +708,9 @@ def levels_walk(table, con_rows, warm_rows, lv, joint, vel_iters: int,
             if m:
                 sel = order[start:start + m]
                 s = lv["slots"][sel]
-                groups.append((k, s, lv["i"][sel], lv["j"][sel],
+                i, j = lv["i"][sel], lv["j"][sel]
+                groups.append((k, s, (i, None if free is None else free[i]),
+                               (j, None if free is None else free[j]),
                                con_rows[s].unbind(1), warm_rows[s].unbind(1)))
                 start += m
         levels.append(groups)
@@ -642,20 +718,37 @@ def levels_walk(table, con_rows, warm_rows, lv, joint, vel_iters: int,
     cols = [c.clone() for c in table.unbind(1)]
     acc = torch.zeros((r, 4), dtype=torch.float32, device=device)
     zero = torch.zeros((), dtype=torch.float32, device=device)
+    flagged = torch.zeros((), dtype=torch.bool, device=device)
+
+    # a body is (its rows, which of them are free, or None); the rows are
+    # read through col (a free row holds +0.0 throughout) and written
+    # through put
+    def col(c, b):
+        return cols[c][b[0]]
+
+    def put(c, b, x):
+        nonlocal flagged
+        rows, fr = b
+        if fr is None:
+            cols[c][rows] = x
+            return
+        flagged = flagged | (torch.where(fr, x, zero).view(torch.int32)
+                             != 0).any()
+        cols[c][rows] = torch.where(fr, zero, x)
 
     def apply(i, j, g, px, py, off, im1, ii1, im2, ii2):
         # every body value read afresh, as the kernels read it: body j's
         # columns after body i's writes (a self pair sees them)
         r1x, r1y, r2x, r2y = g
-        cols[off][i] = cols[off][i] - px * im1
-        cols[off + 1][i] = cols[off + 1][i] - py * im1
-        cols[off + 2][i] = cols[off + 2][i] - ii1 * (r1x * py - r1y * px)
-        cols[off][j] = cols[off][j] + px * im2
-        cols[off + 1][j] = cols[off + 1][j] + py * im2
-        cols[off + 2][j] = cols[off + 2][j] + ii2 * (r2x * py - r2y * px)
+        put(off, i, col(off, i) - px * im1)
+        put(off + 1, i, col(off + 1, i) - py * im1)
+        put(off + 2, i, col(off + 2, i) - ii1 * (r1x * py - r1y * px))
+        put(off, j, col(off, j) + px * im2)
+        put(off + 1, j, col(off + 1, j) + py * im2)
+        put(off + 2, j, col(off + 2, j) + ii2 * (r2x * py - r2y * px))
 
     def masses(i, j):
-        return cols[3][i], cols[4][i], cols[3][j], cols[4][j]
+        return col(3, i), col(4, i), col(3, j), col(4, j)
 
     # the kernels' max_p / min_p (solve_rows.cuh), ties and NaNs included,
     # whatever path torch takes: a vectorised torch.maximum may return the
@@ -697,8 +790,8 @@ def levels_walk(table, con_rows, warm_rows, lv, joint, vel_iters: int,
         if k == 0:
             nx, ny, r1x, r1y, r2x, r2y, mn, mt, fr, dstv, _, ctn = c
             im1, ii1, im2, ii2 = masses(i, j)
-            vx1, vy1, w1 = cols[0][i], cols[1][i], cols[2][i]
-            vx2, vy2, w2 = cols[0][j], cols[1][j], cols[2][j]
+            vx1, vy1, w1 = col(0, i), col(1, i), col(2, i)
+            vx2, vy2, w2 = col(0, j), col(1, j), col(2, j)
             dvx = vx2 - w2 * r2y - vx1 + w1 * r1y
             dvy = vy2 + w2 * r2x - vy1 - w1 * r1x
             vn = nx * dvx + ny * dvy
@@ -716,16 +809,16 @@ def levels_walk(table, con_rows, warm_rows, lv, joint, vel_iters: int,
             acc[s, 1] = ta
             px = nx * dn - ny * dt
             py = ny * dn + nx * dt
-            cols[0][i] = vx1 - px * im1
-            cols[1][i] = vy1 - py * im1
-            cols[2][i] = w1 - ii1 * (r1x * py - r1y * px)
-            cols[0][j] = vx2 + px * im2
-            cols[1][j] = vy2 + py * im2
-            cols[2][j] = w2 + ii2 * (r2x * py - r2y * px)
+            put(0, i, vx1 - px * im1)
+            put(1, i, vy1 - py * im1)
+            put(2, i, w1 - ii1 * (r1x * py - r1y * px))
+            put(0, j, vx2 + px * im2)
+            put(1, j, vy2 + py * im2)
+            put(2, j, w2 + ii2 * (r2x * py - r2y * px))
             return torch.maximum(torch.abs(dn), torch.abs(dt)).max()
         r1x, r1y, r2x, r2y = arms(k, c)
-        vx1, vy1, w1 = cols[0][i], cols[1][i], cols[2][i]
-        vx2, vy2, w2 = cols[0][j], cols[1][j], cols[2][j]
+        vx1, vy1, w1 = col(0, i), col(1, i), col(2, i)
+        vx2, vy2, w2 = col(0, j), col(1, j), col(2, j)
         dvx = vx2 - w2 * r2y - vx1 + w1 * r1y
         dvy = vy2 + w2 * r2x - vy1 - w1 * r1x
         if k == 1:          # impulse -(M dv)
@@ -750,8 +843,8 @@ def levels_walk(table, con_rows, warm_rows, lv, joint, vel_iters: int,
             nx, ny, r1x, r1y, r2x, r2y, mn = c[:7]
             ddv = c[10]
             im1, ii1, im2, ii2 = masses(i, j)
-            px1, py1, q1 = cols[5][i], cols[6][i], cols[7][i]
-            px2, py2, q2 = cols[5][j], cols[6][j], cols[7][j]
+            px1, py1, q1 = col(5, i), col(6, i), col(7, i)
+            px2, py2, q2 = col(5, j), col(6, j), col(7, j)
             dvx = px2 - q2 * r2y - px1 + q1 * r1y
             dvy = py2 + q2 * r2x - py1 - q1 * r1x
             vn = nx * dvx + ny * dvy
@@ -762,16 +855,16 @@ def levels_walk(table, con_rows, warm_rows, lv, joint, vel_iters: int,
             acc[s, 2] = na
             ix = nx * d
             iy = ny * d
-            cols[5][i] = px1 - ix * im1
-            cols[6][i] = py1 - iy * im1
-            cols[7][i] = q1 - ii1 * (r1x * iy - r1y * ix)
-            cols[5][j] = px2 + ix * im2
-            cols[6][j] = py2 + iy * im2
-            cols[7][j] = q2 + ii2 * (r2x * iy - r2y * ix)
+            put(5, i, px1 - ix * im1)
+            put(6, i, py1 - iy * im1)
+            put(7, i, q1 - ii1 * (r1x * iy - r1y * ix))
+            put(5, j, px2 + ix * im2)
+            put(6, j, py2 + iy * im2)
+            put(7, j, q2 + ii2 * (r2x * iy - r2y * ix))
             return torch.abs(d).max()
         r1x, r1y, r2x, r2y = arms(k, c)
-        px1, py1, q1 = cols[5][i], cols[6][i], cols[7][i]
-        px2, py2, q2 = cols[5][j], cols[6][j], cols[7][j]
+        px1, py1, q1 = col(5, i), col(6, i), col(7, i)
+        px2, py2, q2 = col(5, j), col(6, j), col(7, j)
         dvx = px2 - q2 * r2y - px1 + q1 * r1y
         dvy = py2 + q2 * r2x - py1 - q1 * r1x
         if k == 1:          # toward the target (dstx, dsty)
@@ -817,4 +910,4 @@ def levels_walk(table, con_rows, warm_rows, lv, joint, vel_iters: int,
         converged = bool(pres < ptol)
 
     return (torch.stack(cols, 1).reshape(-1), acc.reshape(-1),
-            res.reshape(1))
+            res.reshape(1), flagged)

@@ -26,10 +26,16 @@ those of K1 and K2.  Built with ``nvcc`` at first use
   (``plain_walk``): the spec.  Each agrees with its kernel to the bit.
 * ``solve_contacts_tiled2_levels_plain`` and
   ``solve_contacts_tiled_levels_plain`` run the same visits level by level
-  (``slab_levels``, the pre-pass as torch operations, then
-  ``levels_walk``), one vectorised torch operation per scalar operation;
-  each equals its serial plain version to the bit, and is fast enough to
-  check the kernels on all passes at full-size frames.
+  (``slab_levels``, the pre-pass as torch operations, with the table's
+  free rows, then ``freed_walk``), one vectorised torch operation per
+  scalar operation; each equals its serial plain version to the bit, and
+  is fast enough to check the kernels on all passes at full-size frames.
+
+The zero blocks, the halo and the padding of the table, and any static at
+rest, are free rows (``kernels/contact_solver_streamed.py``): while every
+write to them is +0.0 they are no nodes of the level graph.  Each call's
+counters stay on the device (K1's ``COUNTERS``), the latest call's at
+``<wrapper>.stats``.
 
 Layout (flat): the embedded body table ``(npad*8,)`` f32 (``tiling.embed``),
 slab s's window the rows ``[s*slab_stride, s*slab_stride + window_rows)``;
@@ -65,7 +71,8 @@ import torch
 
 from phyx_tpu_torch.kernels import count_launch, nvcc
 from phyx_tpu_torch.kernels.contact_solver_streamed import (
-    _check, _scratch, levels_of, levels_walk, placement, plain_walk)
+    _check, _scratch, free_rows, freed_walk, levels_of, placement,
+    plain_walk, scratch_levels)
 
 SOURCE = nvcc.CSRC / "contact_solver_tiled.cu"
 # the slab visit map's table (4 n_slabs + 1 int32) sits in the pre-pass's
@@ -92,7 +99,7 @@ def build() -> tuple:
     lib, report = nvcc.load(SOURCE)
     for fn, n_ints in ((lib.phyx_contact_solve_tiled2, 7),
                        (lib.phyx_contact_solve_tiled, 8)):
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * n_ints
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * n_ints
                        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -161,7 +168,8 @@ def _launch(args: dict, smem_last: bool, smem_cols: bool,
     per-row arrays placed as given, on fresh outputs and scratch
     (``torch.empty``; the kernel allocates nothing).  ``solve`` False runs
     the pre-pass alone; ``lib`` is another build of the source (default:
-    ``build()``'s).  Returns (table', acc, residual, int scratch)."""
+    ``build()``'s).  Returns (table', acc, residual, int scratch, the
+    call's counters)."""
     entry, counts, tols, ints = _call(args)
     body_flat, b12 = args["body_flat"], args["b12"]
     device = body_flat.device
@@ -173,18 +181,19 @@ def _launch(args: dict, smem_last: bool, smem_cols: bool,
     body_out = body_flat.clone() if solve else body_flat
     acc = torch.zeros((s * 4,), dtype=torch.float32, device=device)
     res = torch.empty((1,), dtype=torch.float32, device=device)
-    iscratch, fscratch = _scratch(npad, s, device)
+    iscratch, fscratch, stats = _scratch(npad, s, device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, entry)(
-            body_out.data_ptr(), b12.data_ptr(), args["cw"].data_ptr(),
-            acc.data_ptr(), res.data_ptr(), counts.data_ptr(),
-            tols.data_ptr(), *(int(x) for x in ints), npad,
-            iscratch.data_ptr(), fscratch.data_ptr(), int(smem_last),
-            int(smem_cols), int(solve), stream)
+            body_out.data_ptr(), body_flat.data_ptr(), b12.data_ptr(),
+            args["cw"].data_ptr(), acc.data_ptr(), res.data_ptr(),
+            counts.data_ptr(), tols.data_ptr(), stats.data_ptr(),
+            *(int(x) for x in ints), npad, iscratch.data_ptr(),
+            fscratch.data_ptr(), int(smem_last), int(smem_cols), int(solve),
+            stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
-    return body_out, acc, res, iscratch
+    return body_out, acc, res, iscratch, stats
 
 
 def solve_contacts_tiled2(
@@ -202,7 +211,8 @@ def solve_contacts_tiled2(
     """K3.  Returns (body_flat', acc (S*4,), residual (1,)) — see the
     module docstring.  CUDA tensors launch the kernel; CPU tensors take the
     serial plain version.  ``solve_contacts_tiled2.launches`` counts kernel
-    launches."""
+    launches, ``solve_contacts_tiled2.stats`` holds the latest launch's
+    counters."""
     args = dict(body_flat=body_flat, b12=b12, cw=cw, cum=cum,
                 vel_iters=vel_iters, pos_iters=pos_iters, n_slabs=n_slabs,
                 slab_stride=slab_stride, window_rows=window_rows)
@@ -210,12 +220,14 @@ def solve_contacts_tiled2(
     if body_flat.device.type == "cpu":
         return solve_contacts_tiled2_plain(**args, tols=tols)
     out = _launch(dict(args, tols=tols),
-                  **placement(body_flat.numel() // 8))[:3]
+                  **placement(body_flat.numel() // 8))
+    solve_contacts_tiled2.stats = out[4]
     count_launch(solve_contacts_tiled2)
-    return out
+    return out[:3]
 
 
 solve_contacts_tiled2.launches = 0
+solve_contacts_tiled2.stats = None
 
 
 def solve_contacts_tiled(
@@ -234,7 +246,8 @@ def solve_contacts_tiled(
     """K5.  Returns (body_flat', acc (S*4,), residual (1,)) — see the
     module docstring.  CUDA tensors launch the kernel; CPU tensors take the
     serial plain version.  ``solve_contacts_tiled.launches`` counts kernel
-    launches."""
+    launches, ``solve_contacts_tiled.stats`` holds the latest launch's
+    counters."""
     args = dict(body_flat=body_flat, b12=b12, cw=cw, slab_counts=slab_counts,
                 vel_iters=vel_iters, pos_iters=pos_iters, n_slabs=n_slabs,
                 slab_stride=slab_stride, window_rows=window_rows,
@@ -243,12 +256,14 @@ def solve_contacts_tiled(
     if body_flat.device.type == "cpu":
         return solve_contacts_tiled_plain(**args, tols=tols)
     out = _launch(dict(args, tols=tols),
-                  **placement(body_flat.numel() // 8))[:3]
+                  **placement(body_flat.numel() // 8))
+    solve_contacts_tiled.stats = out[4]
     count_launch(solve_contacts_tiled)
-    return out
+    return out[:3]
 
 
 solve_contacts_tiled.launches = 0
+solve_contacts_tiled.stats = None
 
 
 def solve_tiled_placed(args: dict, smem_last: bool, smem_cols: bool):
@@ -263,14 +278,15 @@ def solve_tiled_placed(args: dict, smem_last: bool, smem_cols: bool):
 
 
 def tiled_prepass(args: dict, smem_last: Optional[bool] = None) -> dict:
-    """The pre-pass of K3 (``args`` holding ``cum``) or K5 alone, on a
-    wrapper's CUDA arguments: for timing it apart from the solve and
-    checking its levels against ``slab_levels``.  Not counted in the
-    launches.  Returns device tensors as K1's ``prepass`` does: ``level``
-    (S,) int32, each visit's level in walk order (the first
-    ``offsets[-1]`` entries), ``offsets`` (S + 1,) int32 (the first
-    ``n_levels + 1``), ``n_levels`` (1,) int32, ``slots`` (S,) int32 the
-    slot of each record in level order.  ``smem_last`` overrides where the
+    """The pre-pass of K3 (``args`` holding ``cum``) or K5 alone (free rows
+    no nodes), on a wrapper's CUDA arguments: for timing it apart from the
+    solve and checking its levels against ``slab_levels`` with
+    ``free_rows`` of the table.  Not counted in the launches.  Returns
+    device tensors as K1's ``prepass`` does: ``level`` (S,) int32, each
+    visit's level in walk order (the first ``offsets[-1]`` entries),
+    ``offsets`` (S + 1,) int32 (the first ``n_levels + 1``), ``n_levels``
+    (1,) int32, ``slots`` (S,) int32 the slot of each record in level
+    order, ``stats`` the counters.  ``smem_last`` overrides where the
     last-level array sits (default: ``placement``)."""
     if args["body_flat"].device.type != "cuda":
         raise ValueError("tiled_prepass launches the kernel: CUDA tensors "
@@ -278,10 +294,8 @@ def tiled_prepass(args: dict, smem_last: Optional[bool] = None) -> dict:
     s = args["b12"].numel() // 2
     if smem_last is None:
         smem_last = placement(args["body_flat"].numel() // 8)["smem_last"]
-    iscratch = _launch(args, smem_last, False, solve=False)[3]
-    return dict(level=iscratch[:s], offsets=iscratch[2 * s:3 * s + 1],
-                n_levels=iscratch[3 * s + 1:3 * s + 2],
-                slots=iscratch[3 * s + 2:4 * s + 2])
+    iscratch, stats = _launch(args, smem_last, False, solve=False)[3:]
+    return scratch_levels(iscratch, s, stats)
 
 
 def slab_segments(args: dict) -> tuple:
@@ -328,20 +342,22 @@ def slab_visits(args: dict) -> dict:
                 joint=g % 2 == 1)
 
 
-def slab_levels(args: dict) -> dict:
+def slab_levels(args: dict, free=None) -> dict:
     """The kernels' pre-pass as torch operations: ``slab_visits`` and
     their levels (``levels_of``), keyed on the table rows after the window
-    clamp, so a halo row reached from two slabs is one node."""
+    clamp, so a halo row reached from two slabs is one node; ``free``: the
+    free rows, as the kernels' pre-pass takes them from its table
+    (``free_rows(args["body_flat"])``), or None for the full graph."""
     vis = slab_visits(args)
-    return dict(vis, **levels_of(vis["i"], vis["j"]))
+    return dict(vis, free=free, **levels_of(vis["i"], vis["j"], free))
 
 
 def _levels_plain(args: dict):
-    lv = slab_levels(args)
+    lv = slab_levels(args, free_rows(args["body_flat"]))
     rows = args["cw"].reshape(-1, 14)
-    return levels_walk(args["body_flat"].reshape(-1, 8), rows[:, :12],
-                       rows[:, 12:], lv, lv["joint"], args["vel_iters"],
-                       args["pos_iters"], args.get("tols"))
+    return freed_walk(args["body_flat"].reshape(-1, 8), rows[:, :12],
+                      rows[:, 12:], lv, lv["joint"], args["vel_iters"],
+                      args["pos_iters"], args.get("tols"))[:3]
 
 
 def solve_contacts_tiled2_levels_plain(body_flat, b12, cw, cum,

@@ -41,6 +41,11 @@ The port's spans, nested where they are opened:
 
 The tables are the process's: one a device for the marks, one for the
 spans (``reset_totals`` empties it).
+
+**Solve counters.**  The level-scheduled solves (K1, K3, K5) keep each
+call's counters in device memory, the latest call's at ``<wrapper>.stats``
+(a frame captured into a graph rewrites its call's at every replay):
+``solve_counters`` reads them.
 """
 
 from __future__ import annotations
@@ -220,3 +225,19 @@ def totals() -> dict:
 def reset_totals() -> None:
     with _LOCK:
         _TOTALS.clear()
+
+
+def solve_counters() -> dict:
+    """{kernel: {"levels", "visits", "freed_visits", "fallbacks"}} of the
+    latest call of each level-scheduled solve launched on the card: levels
+    a pass, visits a pass, visits with a free endpoint, and whether the
+    rerun over the full graph ran (``csrc/levels.cuh``).  One read of each
+    kernel's counters, which waits for its stream; empty where none ran."""
+    from phyx_tpu_torch.kernels import wrappers
+    from phyx_tpu_torch.kernels.contact_solver_streamed import COUNTERS
+    out = {}
+    for name, wrapper in wrappers().items():
+        stats = getattr(wrapper, "stats", None)
+        if stats is not None:
+            out[name] = dict(zip(COUNTERS, stats.tolist()))
+    return out

@@ -2,7 +2,11 @@
 (``visit_levels``) against a loop over the recurrence, and the level-by-level
 solve (``solve_contacts_levels_plain``) against the serial plain version,
 to the bit, on a pile frame, a jointed frame and a frame whose static body
-moves at -0.0."""
+moves at -0.0; and the free rows (all +0.0: a static at rest), which are no
+nodes of the schedule while every write to them is +0.0, with the fallback
+over the full graph where one is not."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -13,16 +17,18 @@ from hypothesis import strategies as st
 from phyx_tpu_torch import scenes
 from phyx_tpu_torch.config import SimConfig
 from phyx_tpu_torch.kernels.contact_solver_streamed import (
-    placement, prepass, solve_contacts_levels_plain, solve_contacts_streamed,
+    free_rows, freed_walk, levels_walk, placement, prepass,
+    solve_contacts_levels_plain, solve_contacts_streamed,
     solve_contacts_streamed_plain, solve_in_device_memory, visit_levels)
-from phyx_tpu_torch.step import solve_inputs
+from phyx_tpu_torch.step import rollout, solve_inputs
 from test_torch_solver import packed_inputs
 
 torch.set_num_threads(1)
 
 
-def serial_levels(b1, b2, num, numj, c_cap, n):
-    """The recurrence, walked: level(k) = 1 + max(last[i], last[j])."""
+def serial_levels(b1, b2, num, numj, c_cap, n, free=()):
+    """The recurrence, walked: level(k) = 1 + max(last[i], last[j]), a
+    free row's last level 0 throughout."""
     r = len(b1)
     num = min(max(num, 0), c_cap)
     numj = 0 if numj is None else min(max(numj, 0), r - c_cap)
@@ -33,7 +39,9 @@ def serial_levels(b1, b2, num, numj, c_cap, n):
         i = min(max(b1[k], 0), n - 1)
         j = min(max(b2[k], 0), n - 1)
         lvl = 1 + max(last[i], last[j])
-        last[i] = last[j] = lvl
+        for b in (i, j):
+            if b not in free:
+                last[b] = lvl
         out.append((k, i, j, lvl))
     return out
 
@@ -264,3 +272,149 @@ def test_placement_follows_one_block_of_shared_memory(n, smem_last,
     block's 227 KB (less 1 KB of its own for the columns): 4 N bytes of
     last levels, 12 N bytes of working columns."""
     assert placement(n) == dict(smem_last=smem_last, smem_cols=smem_cols)
+
+
+# ---- free rows ------------------------------------------------------------
+
+def ids(x):
+    return torch.tensor(x, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("b1, b2, n, full, freed", [
+    # eight boxes on one ground row (0): a chain of 8, then one level
+    ([0] * 8, list(range(1, 9)), 9, 8, 1),
+    # each box with two ground points, the ground second: 12, then 2
+    (list(range(1, 7)) * 2, [0] * 12, 7, 12, 2),
+    # two free rows (0 and 5) under one row of boxes, ground points first
+    ([0, 0, 5, 5, 0, 5], [1, 2, 3, 4, 3, 2], 6, 3, 2),
+    # ground points, then contacts between the boxes: the boxes' chain
+    # stays, the ground adds nothing
+    ([0, 0, 0, 0, 1, 2, 3], [1, 2, 3, 4, 2, 3, 4], 5, 5, 4),
+])
+def test_free_ground_row_levels(b1, b2, n, full, freed):
+    """A row shared by every ground contact chains them all when it is a
+    node; as a free row (row 0, and row 5 where n > 5 and it is visited) it
+    adds nothing: the levels follow the recurrence with that row's last
+    level 0 throughout."""
+    r = len(b1)
+    free = torch.zeros(n, dtype=torch.bool)
+    free[[b for b in (0, 5) if b < n and b in b1 + b2]] = True
+    lv = visit_levels(ids(b1), ids(b2), ids(r), None, r, n)
+    assert lv["n_levels"] == full
+    fl = visit_levels(ids(b1), ids(b2), ids(r), None, r, n, free)
+    ref = serial_levels(b1, b2, r, None, r, n,
+                        set(torch.nonzero(free).flatten().tolist()))
+    assert fl["level"].tolist() == [v[3] for v in ref]
+    assert fl["n_levels"] == freed
+    # no two visits of a level share a row that is not free
+    order, off = fl["order"].tolist(), fl["offsets"].tolist()
+    for lvl in range(freed):
+        rows = [b for q in order[off[lvl]:off[lvl + 1]]
+                for b in {ref[q][1], ref[q][2]} if not free[b]]
+        assert len(rows) == len(set(rows))
+
+
+@functools.lru_cache(maxsize=None)
+def _settled_pile():
+    """K1's inputs at a settled 60-box pile on the CPU (60 frames of the
+    colored solve, then the frame K1 would run, with the contact cache's
+    warm impulses)."""
+    cfg = SimConfig(max_bodies=128, max_pairs=512, broadphase="sap_grid",
+                    sap_window=32)
+    st = rollout(scenes.pile(cfg, 60, seed=0).build("cpu"), cfg, 60)
+    return solve_inputs(st, cfg.replace(solver_backend="pallas"), "rows")
+
+
+FREE_FRAMES = {
+    "settled_pile": lambda: dict(_settled_pile()),
+    "pile": lambda: packed_inputs(1, False),
+    "bridge_net": lambda: bridge_net(False),
+}
+
+
+def walk_args(args, free):
+    """``levels_walk``'s arguments for K1's inputs, the levels over
+    ``free`` (None: the full graph)."""
+    n = args["body_flat"].numel() // 8
+    r = args["b1"].numel()
+    c_cap = r if args["c_cap"] is None else args["c_cap"]
+    lv = visit_levels(args["b1"], args["b2"], args["num_contacts"],
+                      args["num_joints"], c_cap, n, free)
+    return (args["body_flat"].reshape(n, 8), args["con_flat"].reshape(r, 12),
+            args["warm_flat"].reshape(r, 2), lv, lv["slots"] >= c_cap,
+            args["vel_iters"], args["pos_iters"], args["tols"])
+
+
+@pytest.mark.parametrize("frame", sorted(FREE_FRAMES))
+def test_freed_walk_equals_serial_with_the_flag_clear(frame):
+    """Over the levels with the table's free rows (the ground, a static
+    at rest) the level walk flags no write and equals the serial walk to
+    the bit, in fewer levels or as many."""
+    args = FREE_FRAMES[frame]()
+    free = free_rows(args["body_flat"])
+    walk = walk_args(args, free)
+    lv = walk[3]
+    freed = int((free[lv["i"]] | free[lv["j"]]).sum())
+    assert freed > 0
+    *got, flagged = levels_walk(*walk)
+    assert not bool(flagged)
+    assert_bit_equal(got, solve_contacts_streamed_plain(**args))
+    assert lv["n_levels"] <= walk_args(args, None)[3]["n_levels"]
+    if frame == "settled_pile":
+        assert lv["n_levels"] < walk_args(args, None)[3]["n_levels"]
+
+
+def plant(args, value):
+    """K1's inputs with ``value`` as the normal warm impulse of the first
+    live contact on a free row."""
+    free = free_rows(args["body_flat"])
+    num = int(args["num_contacts"])
+    n = args["body_flat"].numel() // 8
+    on_free = (free[args["b1"][:num].long().clamp(0, n - 1)]
+               | free[args["b2"][:num].long().clamp(0, n - 1)])
+    slot = int(torch.nonzero(on_free)[0])
+    warm = args["warm_flat"].clone()
+    warm[2 * slot] = value
+    return dict(args, warm_flat=warm)
+
+
+@pytest.mark.parametrize("value", [float("inf"), float("-inf"),
+                                   float("nan")], ids=["inf", "-inf", "nan"])
+@pytest.mark.parametrize("frame", ["settled_pile", "pile"])
+def test_planted_warm_impulse_falls_back(frame, value):
+    """A warm impulse that is not finite on a ground contact writes NaN to
+    the free ground row: the freed walk flags it, and the fallback (the
+    walk again over the full graph) equals the serial walk to the bit."""
+    args = plant(FREE_FRAMES[frame](), value)
+    free = free_rows(args["body_flat"])
+    assert bool(levels_walk(*walk_args(args, free))[3])
+    *got, fell_back = freed_walk(*walk_args(args, free))
+    assert fell_back
+    ref = solve_contacts_streamed_plain(**args)
+    assert bool(torch.isnan(ref[0]).any())
+    assert_bit_equal(got, ref)
+    assert_bit_equal(solve_contacts_levels_plain(**args), ref)
+
+
+@pytest.mark.parametrize("col", range(8))
+def test_negative_zero_keeps_a_static_row_a_node(col):
+    """A static row with -0.0 in any column is no free row: its writes may
+    change its bits, so it stays a node, the levels those of the full
+    graph, and the level walk equals the serial walk to the bit."""
+    args = _settled_pile()
+    n = args["body_flat"].numel() // 8
+    free = free_rows(args["body_flat"])
+    lv = walk_args(args, free)[3]
+    visited = torch.unique(torch.cat([lv["i"], lv["j"]]))
+    static = visited[free[visited]]
+    assert static.numel() >= 1
+    table = args["body_flat"].reshape(n, 8).clone()
+    table[static, col] = -0.0
+    args = dict(args, body_flat=table.reshape(-1))
+    free = free_rows(args["body_flat"])
+    assert not bool(free[static].any())
+    walk = walk_args(args, free)
+    assert walk[3]["n_levels"] == walk_args(args, None)[3]["n_levels"]
+    *got, flagged = levels_walk(*walk)
+    assert not bool(flagged)
+    assert_bit_equal(got, solve_contacts_streamed_plain(**args))

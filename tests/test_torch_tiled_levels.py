@@ -2,8 +2,12 @@
 operations (``slab_levels``) against the recurrence walked over the slab
 walk in this file, the levels plain versions against the serial plain
 versions to the bit (on a pile over three slabs, a jointed frame and a
-hand-made frame whose zero rows start at -0.0), and the placement of the
-kernels' per-row arrays by the table's rows."""
+hand-made frame whose zero rows start at -0.0), the free rows (the zero
+blocks, halo and padding: all +0.0) as no nodes of the schedule, with the
+fallback over the full graph, and the placement of the kernels' per-row
+arrays by the table's rows."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -11,16 +15,17 @@ import torch
 from hypothesis import example, given, settings
 from hypothesis import strategies as st
 
-from phyx_tpu_torch import tiling
+from phyx_tpu_torch import scenes, tiling
 from phyx_tpu_torch.config import SimConfig
 from phyx_tpu_torch.convert import state_from_numpy
-from phyx_tpu_torch.kernels.contact_solver_streamed import placement
+from phyx_tpu_torch.kernels.contact_solver_streamed import (
+    free_rows, freed_walk, levels_walk, placement)
 from phyx_tpu_torch.kernels.contact_solver_tiled import (
     slab_levels, solve_contacts_tiled, solve_contacts_tiled2,
     solve_contacts_tiled2_levels_plain, solve_contacts_tiled2_plain,
     solve_contacts_tiled_levels_plain, solve_contacts_tiled_plain,
     MAX_SLABS, solve_tiled_placed, tiled_placements, tiled_prepass)
-from phyx_tpu_torch.step import solve_inputs
+from phyx_tpu_torch.step import rollout, solve_inputs
 from test_torch_levels import assert_bit_equal, bits
 from test_torch_tiled import (JOINTED, TILED, gate_thresholds, jointed_state,
                               pile_state, with_warm)
@@ -29,13 +34,14 @@ torch.set_num_threads(1)
 
 
 def serial_slab_levels(b12, n_slabs, stride, window, npad, cum=None,
-                       counts=None, j_slots=0):
+                       counts=None, j_slots=0, free=()):
     """The slab walk, walked: slab by slab its contact slots, then its
     joint slots (K3: ``cum`` clamped into [0, S], each slab starting no
     earlier than the one before ended; K5: each count clamped into its
     budget), a slot's rows at s*stride + its local rows clamped into
-    [0, window), and level = 1 + max(last[i], last[j]) over table rows.
-    Returns [(slot, i, j, joint, level)]."""
+    [0, window), and level = 1 + max(last[i], last[j]) over table rows, a
+    free row's last level 0 throughout.  Returns [(slot, i, j, joint,
+    level)]."""
     s = len(b12) // 2
     segments, end = [], 0
     for k in range(n_slabs):
@@ -59,7 +65,9 @@ def serial_slab_levels(b12, n_slabs, stride, window, npad, cum=None,
             i, j = (k * stride + min(max(x, 0), window - 1)
                     for x in b12[2 * slot:2 * slot + 2])
             lvl = 1 + max(last[i], last[j])
-            last[i] = last[j] = lvl
+            for b in (i, j):
+                if b not in free:
+                    last[b] = lvl
             out.append((slot, i, j, joint, lvl))
     return out
 
@@ -334,3 +342,137 @@ def test_tiled_placement_by_the_table_rows(what, npad, smem_last,
     assert len(places) == len({tuple(p.items()) for p in places})
     assert {p["smem_last"] for p in places} == {False, smem_last}
     assert {p["smem_cols"] for p in places} == {False, smem_cols}
+
+
+# ---- free rows ------------------------------------------------------------
+
+@pytest.mark.parametrize("case", [
+    # two slabs of stride 4, window 6: each slab's zero row (0, 4) and
+    # the padding (row 8, 9) free; slab 0 reaches row 4 as a halo row
+    dict(b12=[0, 1, 0, 2, 0, 3, 1, 4, 0, 1, 0, 2, 0, 3, 5, 1],
+         n_slabs=2, stride=4, window=6, cum=[0, 4, 8], free=[0, 4, 8, 9]),
+    # every contact of slab 0 on its zero row: a chain of 6, then 1
+    dict(b12=[0, 1, 2, 0, 0, 3, 4, 0, 0, 5, 0, 6],
+         n_slabs=1, stride=8, window=8, cum=[0, 6], free=[0], levels=(6, 1)),
+    # K5 with joint slots, a free row in each slab's window
+    dict(b12=[0, 1, 0, 2, 1, 2, 2, 0, 0, 3, 3, 0, 1, 0, 2, 3],
+         n_slabs=2, stride=3, window=4, counts=[3, 3, 1, 1], j_slots=1,
+         free=[0, 3]),
+])
+def test_slab_levels_with_free_rows(case):
+    """``slab_levels`` over free rows follows the slab walk's recurrence
+    with those rows' last levels 0 throughout; visits of a level share no
+    row that is not free."""
+    case = dict(case)
+    free_ids, want = case.pop("free"), case.pop("levels", None)
+    npad = (case["n_slabs"] - 1) * case["stride"] + case["window"]
+    free = torch.zeros(npad, dtype=torch.bool)
+    free[free_ids] = True
+    ref = serial_slab_levels(**case, npad=npad, free=set(free_ids))
+    args = layout_args(**case)
+    lv = slab_levels(args, free)
+    assert lv["level"].tolist() == [v[4] for v in ref]
+    full = slab_levels(args)["n_levels"]
+    assert lv["n_levels"] <= full
+    if want is not None:
+        assert (full, lv["n_levels"]) == want
+    order, off = lv["order"].tolist(), lv["offsets"].tolist()
+    for lvl in range(lv["n_levels"]):
+        rows = [r for q in order[off[lvl]:off[lvl + 1]]
+                for r in {ref[q][1], ref[q][2]} if not free[r]]
+        assert len(rows) == len(set(rows))
+
+
+@functools.lru_cache(maxsize=None)
+def _settled_state():
+    """A 300-box pile over three slabs settled 40 frames on the CPU by the
+    colored solve (the tiled solves' inputs then come with the contact
+    cache's warm impulses)."""
+    cfg = SimConfig(**THREE_SLABS)
+    st = scenes.pile(cfg, 300, seed=0).build("cpu")
+    return rollout(st, cfg.replace(solver_backend="xla"), 40)
+
+
+def settled_frame(path):
+    return solve_inputs(_settled_state(), SimConfig(**THREE_SLABS), path)
+
+
+FREE_FRAMES = {
+    "settled_k3": lambda: settled_frame("tiled2"),
+    "settled_k5": lambda: settled_frame("tiled"),
+    "jointed_k5": lambda: jointed_frame(False),
+}
+
+
+def tiled_walk(args, free):
+    """``levels_walk``'s arguments for a tiled solve's inputs, the levels
+    over ``free`` (None: the full graph)."""
+    lv = slab_levels(args, free)
+    rows = args["cw"].reshape(-1, 14)
+    return (args["body_flat"].reshape(-1, 8), rows[:, :12], rows[:, 12:], lv,
+            lv["joint"], args["vel_iters"], args["pos_iters"],
+            args.get("tols"))
+
+
+def serial_of(args):
+    return (solve_contacts_tiled2_plain if "cum" in args
+            else solve_contacts_tiled_plain)(**args)
+
+
+@pytest.mark.parametrize("frame", sorted(FREE_FRAMES))
+def test_freed_walk_equals_serial_with_the_flag_clear(frame):
+    """Over the levels with the table's free rows (each slab's zero block,
+    where statics at rest are remapped, the halo and the padding) the level
+    walk flags no write and equals the serial walk to the bit."""
+    args = FREE_FRAMES[frame]()
+    free = free_rows(args["body_flat"])
+    walk = tiled_walk(args, free)
+    lv = walk[3]
+    assert int((free[lv["i"]] | free[lv["j"]]).sum()) > 0
+    *got, flagged = levels_walk(*walk)
+    assert not bool(flagged)
+    assert_bit_equal(got, serial_of(args))
+    full = tiled_walk(args, None)[3]["n_levels"]
+    assert lv["n_levels"] <= full
+    if frame.startswith("settled"):
+        assert lv["n_levels"] < full
+
+
+@pytest.mark.parametrize("frame", ["settled_k3", "settled_k5"])
+def test_planted_warm_impulse_falls_back(frame):
+    """An infinite warm impulse on a contact with a zero-block row writes
+    NaN to that free row: the freed walk flags it, and the fallback (the
+    walk again over the full graph) equals the serial walk to the bit."""
+    args = FREE_FRAMES[frame]()
+    free = free_rows(args["body_flat"])
+    lv = slab_levels(args, free)
+    slot = int(lv["slots"][free[lv["i"]] | free[lv["j"]]][0])
+    cw = args["cw"].reshape(-1, 14).clone()
+    cw[slot, 12] = float("inf")
+    args = dict(args, cw=cw.reshape(-1))
+    assert bool(levels_walk(*tiled_walk(args, free))[3])
+    *got, fell_back = freed_walk(*tiled_walk(args, free))
+    assert fell_back
+    ref = serial_of(args)
+    assert bool(torch.isnan(ref[0]).any())
+    assert_bit_equal(got, ref)
+
+
+@pytest.mark.parametrize("col", [0, 2, 4, 7])
+def test_negative_zero_keeps_zero_rows_nodes(col):
+    """Zero-block rows with -0.0 in a column are no free rows: the levels
+    are the full graph's and the level walk equals the serial walk."""
+    args = settled_frame("tiled2")
+    free = free_rows(args["body_flat"])
+    lv = slab_levels(args, free)
+    rows = torch.unique(torch.cat([lv["i"], lv["j"]]))
+    rows = rows[free[rows]]
+    table = args["body_flat"].reshape(-1, 8).clone()
+    table[rows, col] = -0.0
+    args = dict(args, body_flat=table.reshape(-1))
+    free = free_rows(args["body_flat"])
+    walk = tiled_walk(args, free)
+    assert walk[3]["n_levels"] == tiled_walk(args, None)[3]["n_levels"]
+    *got, flagged = levels_walk(*walk)
+    assert not bool(flagged)
+    assert_bit_equal(got, serial_of(args))
