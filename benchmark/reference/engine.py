@@ -17,7 +17,8 @@ code or tables:
    (normal then friction of each contact point), the displacement passes,
    walked in the order the configuration's solver defines: the pair
    order, or, on the tiled tier, the pairs ordered (slab, i, j) by the
-   bodies' min-x rank;
+   bodies' rank by min-x, banded by the configuration's sweep bands
+   (``sweep_band_*``) where it states them;
 7. positions and rotations integrated (velocity plus the displacement
    pseudo-velocity);
 8. the new cache (every pair, its points' feature ids and accumulated
@@ -107,6 +108,22 @@ class World:
     restitution_threshold: float
     tiled: bool
     tile_stride: int
+    # the sweep bands (0: none): a body's rank key is its min x plus
+    # floor((min y - band_y0) / band_h) * band_span; with band_rows > 0
+    # the bodies are ranked per band on the static layout of band_cols x
+    # cells, band_n y-bands and band_rows rows an env
+    band_h: float = 0.0
+    band_y0: float = 0.0
+    band_span: float = 0.0
+    band_rows: int = 0
+    band_n: int = 0
+    band_cols: int = 0
+
+
+# the configuration's band keys and their values where it omits them
+BAND_KEYS = {"sweep_band_h": 0.0, "sweep_band_y0": 0.0,
+             "sweep_band_span": 0.0, "sweep_band_rows": 0,
+             "sweep_band_n": 0, "sweep_band_cols": 0}
 
 
 def world_from(bodies: dict, cfg: dict) -> World:
@@ -116,6 +133,8 @@ def world_from(bodies: dict, cfg: dict) -> World:
     f = {k: np.asarray(bodies[k], F32)
          for k in ("inv_mass", "inv_inertia", "half", "friction",
                    "restitution")}
+    band = {k[len("sweep_"):]: type(v)(cfg.get(k, v))
+            for k, v in BAND_KEYS.items()}
     return World(
         active=np.asarray(bodies["active"], bool),
         dt=float(cfg["dt"]), gravity=tuple(cfg["gravity"]),
@@ -126,7 +145,7 @@ def world_from(bodies: dict, cfg: dict) -> World:
         restitution_threshold=float(cfg["restitution_threshold"]),
         tiled=tiled_tier(cfg["solver_backend"], int(cfg["max_bodies"]),
                          int(cfg["max_pairs"])),
-        tile_stride=int(cfg["tile_stride"]), **f)
+        tile_stride=int(cfg["tile_stride"]), **band, **f)
 
 
 def aabbs(pos, rot, half):
@@ -150,24 +169,39 @@ def broadphase(w: World, lo, hi) -> np.ndarray:
               & (dyn[a] | dyn[b]))
         out.append(np.stack([np.minimum(a, b)[ok], np.maximum(a, b)[ok]], 1))
 
-    long_ids = ids[wide]
-    for k, a in enumerate(long_ids):
-        b = ids[ids != a]
-        # a long body meets the other long bodies once, from the lower one
-        b = b[~np.isin(b, long_ids[:k + 1])]
-        b = b[(lo[b, 0] <= hi[a, 0]) & (lo[a, 0] <= hi[b, 0])]
-        keep(np.full_like(b, a), b)
-    rest = ids[~wide]
+    def sweep(order):
+        # each body against those after it in min-x order while x-open
+        rows = np.arange(order.shape[0])
+        d = 1
+        while rows.size:
+            rows = rows[rows + d < order.shape[0]]
+            a, b = order[rows], order[rows + d]
+            x_open = lo[b, 0] <= hi[a, 0]
+            rows, a, b = rows[x_open], a[x_open], b[x_open]
+            keep(a, b)
+            d += 1
+
+    long_ids, rest = ids[wide], ids[~wide]
+    # the long bodies among themselves, each pair once
+    sweep(long_ids[np.argsort(lo[long_ids, 0], kind="stable")])
     order = rest[np.argsort(lo[rest, 0], kind="stable")]
-    rows = np.arange(order.shape[0])
-    d = 1
-    while rows.size:
-        rows = rows[rows + d < order.shape[0]]
-        a, b = order[rows], order[rows + d]
-        x_open = lo[b, 0] <= hi[a, 0]
-        rows, a, b = rows[x_open], a[x_open], b[x_open]
-        keep(a, b)
-        d += 1
+    if long_ids.size and order.size:
+        # each long body against the other bodies whose min x lies in its
+        # x-interval widened by the widest of them: a range of ``order``
+        start_x = lo[order, 0].astype(np.float64)
+        reach = 2.0 * float(np.nanmax(width[~wide], initial=0.0)) + 1.0
+        start = np.searchsorted(
+            start_x, lo[long_ids, 0].astype(np.float64) - reach)
+        stop = np.searchsorted(start_x, hi[long_ids, 0].astype(np.float64),
+                               side="right")
+        count = np.maximum(stop - start, 0)
+        a = np.repeat(long_ids, count)
+        at = (np.arange(count.sum()) + np.repeat(start - np.cumsum(count)
+                                                 + count, count))
+        b = order[at]
+        x_open = (lo[b, 0] <= hi[a, 0]) & (lo[a, 0] <= hi[b, 0])
+        keep(a[x_open], b[x_open])
+    sweep(order)
     pairs = np.concatenate(out) if out else np.zeros((0, 2), np.int64)
     pairs = pairs.astype(np.int64)
     return pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
@@ -312,13 +346,43 @@ def warm_impulses(pairs, fid, ok, cache: dict, n: int):
     return wn, wt
 
 
+def rank_keys(w: World, lo) -> np.ndarray:
+    """(N,) float32: each active body's min x, offset by its y-band where
+    the configuration bands the sweep (the band of its min y), in float32
+    operations in the configuration's order; +inf for the others."""
+    x = lo[:, 0]
+    if w.band_h > 0.0:
+        band = np.floor((lo[:, 1] - F32(w.band_y0)) * F32(1.0 / w.band_h))
+        x = x + band * F32(w.band_span)
+    return np.where(w.active, x, F32(np.inf))
+
+
+def rank_order(w: World, lo) -> np.ndarray:
+    """(N,) the body at each rank: a stable sort of ``rank_keys``, or on
+    a static band layout (``band_rows`` > 0) each y-band's rows sorted
+    stably on their own, the bands in turn, and the rows past the layout
+    after them in index order.  Env e holds rows [e R, (e+1) R) and sits
+    in y-band e % B of x cell e // B, so the layout's (X, B, R) rows are
+    read as (B, X R)."""
+    keys = rank_keys(w, lo)
+    if w.band_rows <= 0:
+        return np.argsort(keys, kind="stable")
+    r, b, x = w.band_rows, w.band_n, w.band_cols
+    head = x * b * r
+    ids = np.arange(keys.shape[0])
+    kt = keys[:head].reshape(x, b, r).transpose(1, 0, 2).reshape(b, x * r)
+    it = ids[:head].reshape(x, b, r).transpose(1, 0, 2).reshape(b, x * r)
+    perm = np.argsort(kt, axis=1, kind="stable")
+    return np.concatenate([np.take_along_axis(it, perm, 1).reshape(-1),
+                           ids[head:]])
+
+
 def slab_ranks(w: World, lo):
-    """The tiled tier's body ranks by min-x (active bodies first, ties
-    by index), the bodies a slab holds and the number of slabs."""
+    """The tiled tier's body ranks (``rank_order``: active bodies first,
+    ties by index), the bodies a slab holds and the number of slabs."""
     n = lo.shape[0]
-    key = np.where(w.active, lo[:, 0], np.inf)
     rank = np.empty(n, np.int64)
-    rank[np.argsort(key, kind="stable")] = np.arange(n)
+    rank[rank_order(w, lo)] = np.arange(n)
     rps = w.tile_stride - 128
     n_slabs = -(-n // rps)
     return rank, rps, n_slabs

@@ -9,12 +9,13 @@ import numpy as np
 from benchmark.scenes import Rows, Scene
 
 
-def make(boxes: int, seed: int, box_half: float = 0.5,
-         jitter: float = 0.1) -> Scene:
-    """Each column position jittered by ``numpy.random.default_rng(seed)``."""
+def make(boxes: int, seed, box_half: float = 0.5, jitter: float = 0.1,
+         ground_half: float = 1e4) -> Scene:
+    """Each column position jittered by ``numpy.random.default_rng(seed)``;
+    the ground ``ground_half`` wide each way."""
     rng = np.random.default_rng(seed)
     rows = Rows()
-    rows.ground()
+    rows.ground(ground_half)
     cols = max(1, int(math.sqrt(boxes * 2)))
     spacing = box_half * 2.05
     placed = row = 0

@@ -1,7 +1,10 @@
 """A copy of the benchmark in a temporary root, with tiny cells added by
 new files and entries alone: a configuration file and a ``workloads``
 entry each, and for one of them a scene kind of its own
-(``benchmark/scenes/<kind>.py``)."""
+(``benchmark/scenes/<kind>.py``).  ``tiny_envs`` is bench row E's
+mega-scene in small: 64 envs of 5 boxes on 8 y-bands, the sweep banded,
+the tiled tier in slabs of 128 bodies, so that slab boundaries cut
+envs."""
 
 import json
 import shutil
@@ -35,13 +38,21 @@ def make(boxes, seed, box_half=0.5):
 TINY["tiny_column"] = ("pile_10k", dict(
     TINY["tiny_pile"][1], scene={"kind": "column", "box_half": 0.5},
     boxes=12))
+TINY["tiny_envs"] = ("pile_10k", dict(
+    scene={"kind": "envs", "envs": 64}, boxes=5,
+    max_bodies=512, max_pairs=1024, broadphase="sap", sap_window=96,
+    solver_backend="pallas_tiled", tile_stride=256, tile_halo=256,
+    sweep_band_h=400.0, sweep_band_y0=-200.0, sweep_band_span=1024.0,
+    settle={"frames": 10, "chunk": 10, "autotune": False}))
 CELLS = {"tiny-realtime": ("tiny_pile", "realtime"),
          "tiny-batch": ("tiny_avalanche", "batch"),
-         "tiny-column": ("tiny_column", "realtime")}
+         "tiny-column": ("tiny_column", "realtime"),
+         "tiny-envs": ("tiny_envs", "realtime")}
 # the cell whose metrics each tiny cell reports too
 LIKE = {"tiny-realtime": "pile10k-realtime",
         "tiny-batch": "avalanche20k-batch",
-        "tiny-column": "pile10k-realtime"}
+        "tiny-column": "pile10k-realtime",
+        "tiny-envs": "pile10k-realtime"}
 
 
 def tiny_root(tmp: Path) -> Path:

@@ -3,12 +3,17 @@ a configuration file and a manifest entry each, one with a scene kind of
 its own), run through the whole harness on the CPU
 with the kernels' plain versions: each traffic mix runs and its output is
 correct; with the timed path broken underneath, ``correct`` comes out
-false; the command without a card prints no result."""
+false; the envs cell is refused where the reference ranks the tiled tier
+by raw min x, or where one env of the sixty-four is stepped wrong; the
+command without a card prints no result."""
+
+import dataclasses
 
 import pytest
 import torch
 
 from benchmark import run
+from benchmark.reference import engine
 from benchmark.tests.cells import tiny_root
 
 SEED = 3_000_000_007
@@ -26,7 +31,8 @@ REALTIME = {"steps_per_s.realtime", "frame_ms_p95", "setup_s"}
 @pytest.mark.parametrize("cell,metrics", [
     ("tiny-realtime", REALTIME),
     ("tiny-batch", {"steps_per_s", "setup_s"}),
-    ("tiny-column", REALTIME)])
+    ("tiny-column", REALTIME),
+    ("tiny-envs", REALTIME)])
 def test_mix_runs_and_is_correct(root, cell, metrics):
     result, lines = run.run_cell(root, cell, SEED, 1.0, False, device="cpu")
     assert result["correct"], lines
@@ -73,10 +79,47 @@ def altered(call):
 
 
 @pytest.mark.parametrize("fault", [unchanged, half_left_out, altered])
-@pytest.mark.parametrize("cell", ["tiny-realtime", "tiny-batch"])
+@pytest.mark.parametrize("cell", ["tiny-realtime", "tiny-batch",
+                                  "tiny-envs"])
 def test_a_broken_timed_path_is_not_correct(root, cell, fault):
     result, lines = run.run_cell(root, cell, SEED, 1.0, False,
                                  device="cpu", wrap=fault)
+    assert not result["correct"], lines
+
+
+def one_env_unsolved(call):
+    """Env 5 of the sixty-four (6 rows, its ground first) left out of the
+    solve: its boxes fall freely through the call's one frame."""
+    def broken(state, frames):
+        out = call(state, frames)
+        b, dt = state.bodies, 1.0 / 60.0
+        rows = slice(31, 36)
+        out.bodies.vel[rows] = b.vel[rows] + torch.tensor([0.0, -10.0]) * dt
+        out.bodies.pos[rows] = b.pos[rows] + out.bodies.vel[rows] * dt
+        out.bodies.angvel[rows] = b.angvel[rows]
+        out.bodies.rot[rows] = b.rot[rows]
+        return out
+    return broken
+
+
+@pytest.mark.parametrize("seed", [SEED, 11])
+def test_one_env_stepped_wrong_is_not_correct(root, seed):
+    result, lines = run.run_cell(root, "tiny-envs", seed, 1.0, False,
+                                 device="cpu", wrap=one_env_unsolved)
+    assert not result["correct"], lines
+
+
+@pytest.mark.parametrize("seed", [SEED, 11])
+def test_envs_ranked_by_raw_min_x_are_refused(root, seed, monkeypatch):
+    """The order matters in this layout: the reference ranking the tiled
+    tier by raw min x, the 8 envs of an x cell interleave, slab
+    boundaries cut other envs than the program's, and the sound run is
+    refused."""
+    world_from = engine.world_from
+    monkeypatch.setattr(engine, "world_from", lambda *a, **k: (
+        dataclasses.replace(world_from(*a, **k), band_h=0.0, band_rows=0)))
+    result, lines = run.run_cell(root, "tiny-envs", seed, 1.0, False,
+                                 device="cpu")
     assert not result["correct"], lines
 
 
