@@ -194,6 +194,7 @@ def solve_contacts_streamed(
 
 solve_contacts_streamed.launches = 0
 solve_contacts_streamed.stats = None
+solve_contacts_streamed.counter_names = COUNTERS
 
 
 def _launch(body_flat, b1, b2, con_flat, warm_flat, num_contacts, vel_iters,

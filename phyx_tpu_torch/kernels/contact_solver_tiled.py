@@ -71,8 +71,8 @@ import torch
 
 from phyx_tpu_torch.kernels import count_launch, nvcc
 from phyx_tpu_torch.kernels.contact_solver_streamed import (
-    _check, _scratch, free_rows, freed_walk, levels_of, placement,
-    plain_walk, scratch_levels)
+    COUNTERS, _check, _scratch, free_rows, freed_walk, levels_of,
+    placement, plain_walk, scratch_levels)
 
 SOURCE = nvcc.CSRC / "contact_solver_tiled.cu"
 # the slab visit map's table (4 n_slabs + 1 int32) sits in the pre-pass's
@@ -228,6 +228,7 @@ def solve_contacts_tiled2(
 
 solve_contacts_tiled2.launches = 0
 solve_contacts_tiled2.stats = None
+solve_contacts_tiled2.counter_names = COUNTERS
 
 
 def solve_contacts_tiled(
@@ -264,6 +265,7 @@ def solve_contacts_tiled(
 
 solve_contacts_tiled.launches = 0
 solve_contacts_tiled.stats = None
+solve_contacts_tiled.counter_names = COUNTERS
 
 
 def solve_tiled_placed(args: dict, smem_last: bool, smem_cols: bool):

@@ -35,6 +35,12 @@ Layout: ``rows`` (4, npad) f32 [xlo, ylo, xhi, yhi], ``dyn`` and ``order``
 [tlo, thi] or None.  Returns (pi, pj) (max_pairs,) int32 — the kernel
 writes only the slots below ``num`` — and ``num``, ``ovf_drop``,
 ``ovf_window``, () int32 on the device.
+
+The wrapper keeps its latest call's counters (``COUNTERS``: the pairs
+written, ``ovf_drop``, ``ovf_window``), (3,) int32 on the device, at
+``sweep_emit_tiled.stats``: on the card the tensor the kernel writes, so a
+call captured into a CUDA graph leaves there the graph's own buffer, which
+each replay rewrites; on the CPU the plain version's three counters.
 """
 
 from __future__ import annotations
@@ -54,6 +60,8 @@ from phyx_tpu_torch.types import EMPTY
 SOURCE = nvcc.CSRC / "sweep_tiled.cu"
 TILE_SWEEPS = 256    # a tile: consecutive sweeps, a thread each
 STAGE_PAIRS = 2048   # the pairs a tile stages in shared memory
+# the sweep's counters, in the order of its stats tensor
+COUNTERS = ("pairs", "ovf_drop", "ovf_window")
 
 
 @functools.lru_cache(maxsize=1)
@@ -107,23 +115,29 @@ def sweep_emit_tiled(
     """K4.  Returns (pi, pj, num, ovf_drop, ovf_window) — see the module
     docstring.  CUDA tensors launch the kernel; CPU tensors take the plain
     version.  ``sweep_emit_tiled.launches`` counts kernel launches (one a
-    call)."""
+    call), ``sweep_emit_tiled.stats`` holds the latest call's counters
+    (``COUNTERS``, on the device)."""
     args = (rows, dyn, order, nact, max_pairs, n_slabs, slab_stride,
             window_rows, truex)
     check_inputs(*args)
     device = rows.device
     if device.type == "cpu":
-        return sweep_emit_tiled_plain(*args)
+        out = sweep_emit_tiled_plain(*args)
+        sweep_emit_tiled.stats = torch.stack(out[2:])
+        return out
     _require_cuda(device)
     i32 = dict(dtype=torch.int32, device=device)
     pi, pj = (torch.empty((max_pairs,), **i32) for _ in range(2))
-    counters = torch.empty((3,), **i32)
+    counters = torch.empty((len(COUNTERS),), **i32)
     tiled_pass(*args, pi, pj, counters)
+    sweep_emit_tiled.stats = counters
     count_launch(sweep_emit_tiled)
     return pi, pj, counters[0], counters[1], counters[2]
 
 
 sweep_emit_tiled.launches = 0
+sweep_emit_tiled.stats = None
+sweep_emit_tiled.counter_names = COUNTERS
 
 
 def tiled_pass(rows, dyn, order, nact, max_pairs, n_slabs, slab_stride,

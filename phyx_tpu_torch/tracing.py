@@ -42,8 +42,9 @@ The port's spans, nested where they are opened:
 The tables are the process's: one a device for the marks, one for the
 spans (``reset_totals`` empties it).
 
-**Solve counters.**  The level-scheduled solves (K1, K3, K5) keep each
-call's counters in device memory, the latest call's at ``<wrapper>.stats``
+**Kernel counters.**  The level-scheduled solves (K1, K3, K5) and the
+mega-scene sweep (K4) keep each call's counters in device memory, the
+latest call's at ``<wrapper>.stats``, named by ``<wrapper>.counter_names``
 (a frame captured into a graph rewrites its call's at every replay):
 ``solve_counters`` reads them.
 """
@@ -228,16 +229,19 @@ def reset_totals() -> None:
 
 
 def solve_counters() -> dict:
-    """{kernel: {"levels", "visits", "freed_visits", "fallbacks"}} of the
-    latest call of each level-scheduled solve launched on the card: levels
-    a pass, visits a pass, visits with a free endpoint, and whether the
-    rerun over the full graph ran (``csrc/levels.cuh``).  One read of each
+    """{kernel: {counter: value}} of the latest call of each kernel that
+    keeps counters, under the wrapper's own names: for the level-scheduled
+    solves launched on the card (K1, K3, K5) "levels", "visits",
+    "freed_visits", "fallbacks" (levels a pass, visits a pass, visits with
+    a free endpoint, and whether the rerun over the full graph ran,
+    ``csrc/levels.cuh``); for the mega-scene sweep (K4, on the card or its
+    plain version) "pairs", "ovf_drop", "ovf_window" (pairs written, pairs
+    past the budget, walks cut by their window).  One read of each
     kernel's counters, which waits for its stream; empty where none ran."""
     from phyx_tpu_torch.kernels import wrappers
-    from phyx_tpu_torch.kernels.contact_solver_streamed import COUNTERS
     out = {}
     for name, wrapper in wrappers().items():
         stats = getattr(wrapper, "stats", None)
         if stats is not None:
-            out[name] = dict(zip(COUNTERS, stats.tolist()))
+            out[name] = dict(zip(wrapper.counter_names, stats.tolist()))
     return out
